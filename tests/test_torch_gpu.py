@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import adversarial_fleet
+from chip_smoke import (INT8_LAYOUTS, INT8_PARAMS, adversarial_fleet, int8_edge_fleet,
+                        int8_on)
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
 
@@ -47,7 +48,7 @@ def test_chip_pass_matches_plain(cuda, T, params):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("params", PARAMS)
-@pytest.mark.parametrize("T", [1, 31, 360, 361])
+@pytest.mark.parametrize("T", [1, 12, 31, 360, 361, 10080])
 def test_chip_pass_q_matches_plain(cuda, T, params):
     tc, hbm, valid, age = adversarial_on(cuda, T)
     tc_q = tp.quantize_samples_device(tc, valid)
@@ -60,6 +61,36 @@ def test_chip_pass_q_matches_plain(cuda, T, params):
     torch.cuda.synchronize()
     assert tp.LAUNCHES["chip_pass_q"] == before + 1
     assert torch.equal(got, tp.chip_pass_q_plain(tc_q, hbm_q, age, parr_q))
+
+
+def assert_q_matches_plain(device, tc_q, hbm_q, age):
+    for params in INT8_PARAMS:
+        parr_q = torch.from_numpy(tp.quantize_params(np.array(params, np.float32))).to(device)
+        before = tp.LAUNCHES["chip_pass_q"]
+        got = tp.chip_pass_q(tc_q, hbm_q, age, parr_q)
+        torch.cuda.synchronize()
+        assert tp.LAUNCHES["chip_pass_q"] == before + 1
+        assert torch.equal(got, tp.chip_pass_q_plain(tc_q, hbm_q, age, parr_q)), params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", INT8_LAYOUTS)
+@pytest.mark.parametrize("C", [1, 17, 1003])
+@pytest.mark.parametrize("T", [1, 12, 31, 360, 361, 10080])
+def test_chip_pass_q_edges(cuda, T, C, layout):
+    """Every series length, ragged chip counts, data pointers off a 16-byte
+    boundary (each array its own), rows of all -1, -128 and 127."""
+    tc, hbm, age = int8_edge_fleet(np.random.default_rng(T * 7919 + C), C, T)
+    assert_q_matches_plain(cuda, int8_on(cuda, tc, layout, 1), int8_on(cuda, hbm, layout, 2),
+                           torch.from_numpy(age).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "row_offset"])
+def test_chip_pass_q_full_width(cuda, layout):
+    tc, hbm, age = int8_edge_fleet(np.random.default_rng(3), 131072, 360)
+    assert_q_matches_plain(cuda, int8_on(cuda, tc, layout, 1), int8_on(cuda, hbm, layout, 2),
+                           torch.from_numpy(age).to(cuda))
 
 
 @pytest.mark.gpu

@@ -14,6 +14,7 @@ import torch
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner.policy import pallas_engine as jpal
 from tpu_pruner_torch import policy as tp
+from tpu_pruner_torch.policy import kernels
 
 CPU = "cpu"
 
@@ -372,3 +373,55 @@ def test_cuda_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tp.evaluate_fleet_cuda_qc(q[0], q[1], q[2],
                                   tp.slice_bounds(inputs[4], 2, device=CPU), q[4])
+
+
+# ── launch plan of the int8 kernel (pure Python, so checked here) ─────────
+
+
+@pytest.mark.parametrize("num_chips", [1, 17, 1003, 131072])
+@pytest.mark.parametrize("sm_count", [1, 78, 132])
+def test_plan_q_invariants(sm_count, num_chips):
+    """For every series length up to a week of minutes: tiles start 16-byte
+    aligned, parts are whole 16-byte units that cover the tile, the shared
+    memory fits without opting in, and every chip lands in a block."""
+    for T in range(1, 10081):
+        p = kernels._plan_q(num_chips, T, sm_count)
+        assert p.rows_per_tile % 16 == 0 and p.rows_per_tile * T < 2**31
+        assert p.part_bytes % 16 == 0 and 0 < p.part_bytes <= kernels._Q_PART_BYTES
+        assert (p.parts - 1) * p.part_bytes < p.rows_per_tile * T <= p.parts * p.part_bytes
+        assert p.parts == 1 or (p.rows_per_tile == kernels._Q_CARRY_ROWS and p.stages == 2)
+        assert p.stages in (1, 2)
+        assert p.lanes_per_row in (1, 2, 4, 8, 16, 32)
+        assert p.smem_bytes == kernels._q_smem(p.rows_per_tile, p.part_bytes, p.stages)
+        assert p.smem_bytes <= kernels._Q_SMEM_MAX <= 232_448  # 227 KB, Hopper's most
+        assert p.grid >= 1
+        assert (p.grid - 1) * p.rows_per_tile < num_chips <= p.grid * p.rows_per_tile
+
+
+@pytest.mark.parametrize("num_chips, T", [(1, 1), (17, 12), (203, 31), (40, 360),
+                                          (33, 361), (17, 385), (5, 10080)])
+def test_plan_q_parts_cover_each_row_once(num_chips, T):
+    """The kernel's walk over tiles and parts, replayed in Python: every byte
+    of every row is in exactly one part, and a row cut by parts stays within
+    the rows a block can carry."""
+    p = kernels._plan_q(num_chips, T, 132)
+    seen = np.zeros((num_chips, T), np.int64)
+    for tile in range(p.grid):
+        row0 = tile * p.rows_per_tile
+        tile_len = min(p.rows_per_tile, num_chips - row0) * T
+        for part in range(p.parts):
+            start = part * p.part_bytes
+            length = max(0, min(tile_len - start, p.part_bytes))
+            if length == 0:
+                continue
+            for r in range(start // T, (start + length - 1) // T + 1):
+                beg, end = max(r * T - start, 0), min(r * T + T - start, length)
+                assert beg < end
+                seen[row0 + r, start + beg - r * T:start + end - r * T] += 1
+                if p.parts > 1 and not (r * T >= start and r * T + T <= start + length):
+                    assert r < kernels._Q_CARRY_ROWS
+    np.testing.assert_array_equal(seen, 1)
+
+
+def test_plan_q_empty_fleet_has_no_blocks():
+    assert kernels._plan_q(0, 360, 132).grid == 0

@@ -26,11 +26,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I = ctypes.c_int
 # C signature of every entry point: pointers and the stream as void*, sizes
-# as int64; each returns cudaGetLastError() as an int.
+# as int64, small counts as int; each returns cudaGetLastError() as an int.
 SIGNATURES = {
     "tp_chip_pass": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
-    "tp_chip_pass_q": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    # ..., num_chips, num_samples, then kernels.PlanQ in order, then the stream
+    "tp_chip_pass_q": (_P, _P, _P, _P, _P, _I64, _I64,
+                       _I64, _I64, _I, _I, _I, _I64, _I64, _P),
 }
 SOURCE = CSRC / "chip_pass.cu"
 LIBRARY = BUILD_DIR / "libchip_pass.so"

@@ -2,17 +2,50 @@
 // (sm_90a). Two kernels, one per sample storage:
 //
 //   tp_chip_pass    replaces tpu_pruner/policy/pallas_engine.py::_chip_kernel
-//                   (f32 samples + bool validity mask);
+//                   (pallas_engine.py:33; f32 samples + bool validity mask);
 //   tp_chip_pass_q  replaces tpu_pruner/policy/pallas_engine.py::_chip_kernel_q
-//                   (int8 1%-bucket samples, -1 = invalid in-band).
+//                   (pallas_engine.py:104; int8 1%-bucket samples, -1 = invalid
+//                   in-band).
 //
 // Both read every sample byte once and write one byte per chip: they are
 // bound by device-memory bandwidth and do no tensor-core work. At the fleet
-// size of 131,072 chips x 360 samples the f32 pass moves ~425 MB (127 us at
-// 3.35 TB/s) and the int8 pass ~95 MB (28 us). This first version is the
-// simple one: one warp per chip row, lanes striding over the samples with
-// coalesced scalar loads, a shuffle reduction across the warp, and lane 0
-// applying the gates. Vector loads, several rows per warp and TMA come later.
+// size of 131,072 chips x 360 samples the f32 pass moves 425,328,648 B
+// (127 us at 3.35 TB/s) and the int8 pass 95,027,208 B (28.4 us).
+//
+// tp_chip_pass is the simple design: one warp per chip row, lanes striding
+// over the samples with coalesced scalar loads, a shuffle reduction across
+// the warp, and lane 0 applying the gates.
+//
+// tp_chip_pass_q is built against the latency limit of such a stream. One
+// warp per 360-byte row with 1-byte lane loads keeps only a few KB in flight
+// per SM, where Little's law asks for ~15 KB (3.35 TB/s x ~0.6 us over 132
+// SMs); that design reached 48% of its bound on the H100. So the int8 pass:
+//   - cuts the fleet into flat tiles of R rows, R a multiple of 16, so a
+//     tile's byte range [r0*T, (r0+R)*T) starts on a 16-byte boundary for
+//     every T (relative to the array's base); rows are not the unit of copy;
+//   - has one producer warp copy each array's tile, and the tile's ages, into
+//     shared memory with Hopper's 1-D bulk copy (cp.async.bulk ...
+//     mbarrier::complete_tx, marked evict-first in L2), and four consumer
+//     warps reduce it once its mbarrier completes: one instruction moves a
+//     whole tile, and the many resident blocks of an SM (each ~12 KB at
+//     T=360) keep far more than 15 KB in flight;
+//   - gives each block one tile (a grid of ceil(C/R) blocks), so the
+//     hardware scheduler balances tiles across SMs; on the H100 this beat a
+//     persistent grid whose blocks walk a ring of tiles (PERF.md). A
+//     block walks its tile's parts through a ring of stages with a full and
+//     an empty mbarrier each, which a row longer than a stage needs;
+//   - reduces from shared memory in 4-byte words with max.s16x2 (two signed
+//     16-bit maxima per instruction, the int8 samples as high bytes),
+//     lanes_per_row lanes to a row; the partial words at a row's edges are
+//     masked, the halves folded as scalars and the lanes by shuffles.
+// Edges: a base pointer off a 16-byte boundary (a view such as x[1:]) has its
+// aligned interior copied in bulk and its head and tail (< 16 B each) read
+// with plain loads into the same stage; the last tile is clipped to the rows
+// that exist; a tile larger than one stage (T above 384) is streamed in
+// parts, and a row that spans parts carries its max in shared memory. No
+// byte outside the tensors is read. The launch plan (rows per tile, part
+// size, parts, stages, lanes per row, shared memory, grid) is computed by
+// kernels._plan_q in Python and checked here.
 //
 // Numerics follow the reference's XLA semantics exactly, without -ftz or
 // fast math, so each rule is explicit here:
@@ -26,7 +59,8 @@
 //
 // [lookback_s, cutoff] come from a 2-float device buffer, so parameter
 // changes need neither a rebuild nor a host sync. Each entry point returns
-// cudaGetLastError() after its launch; the Python wrapper raises on non-zero.
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for a launch
+// plan it refuses); the Python wrapper raises on non-zero.
 
 #include <cfloat>
 #include <cmath>
@@ -95,36 +129,305 @@ chip_pass_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-chip_pass_q_kernel(const int8_t* __restrict__ tc_q, const int8_t* __restrict__ hbm_q,
-                   const float* __restrict__ age, const float* __restrict__ params_q,
-                   uint8_t* __restrict__ out, int64_t num_chips, int64_t num_samples) {
-    const int lane = threadIdx.x & 31;
-    const int64_t row = int64_t(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-    if (row >= num_chips) return;
+unsigned grid_for(int64_t num_chips) {
+    return unsigned((num_chips + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
 
-    const int64_t base = row * num_samples;
-    int peak_tc = -128, peak_hbm = -128;  // identity of an int8 max
-    for (int64_t t = lane; t < num_samples; t += 32) {
-        peak_tc = max(peak_tc, int(tc_q[base + t]));
-        peak_hbm = max(peak_hbm, int(hbm_q[base + t]));
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-        peak_tc = max(peak_tc, __shfl_xor_sync(kFullMask, peak_tc, off));
-        peak_hbm = max(peak_hbm, __shfl_xor_sync(kFullMask, peak_hbm, off));
-    }
+// ── int8 pass: bulk-copy ring, one producer warp, four consumer warps ───────
 
-    if (lane == 0) {
-        // the -1 sentinel makes has_data implicit: peak == 0 needs a valid zero
-        const bool idle = peak_tc == 0;
-        const bool hbm_active = float(peak_hbm) >= flush_subnormal(params_q[1]);
-        const bool eligible = flush_subnormal(age[row]) >= flush_subnormal(params_q[0]);
-        out[row] = (idle && !hbm_active && eligible) ? 1 : 0;
+constexpr int kQConsumerWarps = 4;
+constexpr int kQThreads = (kQConsumerWarps + 1) * 32;  // the last warp copies
+constexpr int kQMaxStages = 2;  // the plan uses 1, or 2 for a tile in parts
+constexpr int kQCarryRows = 16;          // rows of a tile that is cut into parts
+constexpr int64_t kQSmemMax = 48 * 1024;  // dynamic shared memory without opt-in
+constexpr uint32_t kNeg4 = 0x80808080u;  // four int8 -128: identity of the max
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Announce the bytes the stage's bulk copies will bring (no arrival).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for the completion of the barrier's phase with the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
     }
 }
 
-unsigned grid_for(int64_t num_chips) {
-    return unsigned((num_chips + kWarpsPerBlock - 1) / kWarpsPerBlock);
+// 1-D bulk copy global -> shared; both addresses and the size are multiples
+// of 16 bytes. Completion is counted in bytes on the mbarrier.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy) : "memory");
+}
+
+struct QPlan {
+    int64_t num_chips, num_samples;
+    int64_t rows;        // rows per tile, a multiple of 16
+    int64_t part_bytes;  // bytes per sample array per stage, a multiple of 16
+    int parts;           // parts per tile: ceil(rows * T / part_bytes)
+    int stages;          // ring depth
+    int lanes;           // lanes per row: a power of two up to 32
+};
+
+// The parts of this block's tile, as bytes of each sample array relative to
+// its base. Producer and consumers walk them in the same order, with
+// counters rather than divisions (a 64-bit division is a long software
+// routine).
+struct PartWalk {
+    const QPlan q;
+    const int64_t row0;       // the tile's first chip
+    const int64_t tile_rows;  // its chips (fewer in a clipped last tile)
+    int64_t start = 0;        // first byte of the current part within the tile
+    int part = 0;
+    int stage = 0;
+    uint32_t phase = 0;       // parity of the ring's current round
+
+    __device__ __forceinline__ explicit PartWalk(const QPlan& plan)
+        : q(plan), row0(int64_t(blockIdx.x) * plan.rows),
+          tile_rows(min64(plan.rows, plan.num_chips - row0)) {}
+    __device__ __forceinline__ bool valid() const { return part < q.parts; }
+    __device__ __forceinline__ int len() const {  // 0 past the end of a clipped tile
+        return int(max64(0, min64(tile_rows * q.num_samples - start, q.part_bytes)));
+    }
+    __device__ __forceinline__ int age_len() const { return int(tile_rows) * 4; }
+    __device__ __forceinline__ void next() {
+        if (++stage == q.stages) stage = 0, phase ^= 1;
+        ++part;
+        start += q.part_bytes;
+    }
+};
+
+// A stage holds one part of each sample array and the tile's ages. An array
+// whose base is `mis` bytes past a 16-byte boundary sits in its buffer at
+// offset `mis`, so that buffer and global memory agree mod 16. Its first
+// `head` bytes (up to the next 16-byte boundary) and its last < 16 bytes go
+// by plain loads; the interior, `bulk` bytes, by one bulk copy.
+struct Span {
+    int mis, head, bulk, len;
+    __device__ __forceinline__ Span(const void* base, int len_) : len(len_) {
+        mis = int(reinterpret_cast<uintptr_t>(base) & 15);
+        head = (16 - mis) & 15;
+        bulk = len > head ? (len - head) & ~15 : 0;
+    }
+    // lane k < 16 copies head byte k, lane k >= 16 tail byte k - 16
+    __device__ __forceinline__ void copy_edge(unsigned char* buf, const unsigned char* src,
+                                              int lane) const {
+        const int j = lane < 16 ? lane : head + bulk + (lane - 16);
+        if (lane < 16 ? j < min(head, len) : j < len) buf[mis + j] = src[j];
+    }
+};
+
+// Two signed 16-bit maxima in one instruction (sm_90).
+__device__ __forceinline__ uint32_t max_s16x2(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("max.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+}
+
+// Fold a word of four int8 samples into acc, which holds byte maxima as the
+// high bytes of two 16-bit halves (x * 256 orders as x does): the odd bytes
+// already sit there, the even bytes are shifted in.
+constexpr uint32_t kAccInit = 0x80008000u;  // -128 * 256 in each half
+__device__ __forceinline__ uint32_t fold_word(uint32_t acc, uint32_t v) {
+    acc = max_s16x2(acc, v & 0xff00ff00u);
+    return max_s16x2(acc, (v << 8) & 0xff00ff00u);
+}
+
+// The same for a word at a row's edge: only its bytes [lo, hi) count, the
+// others read as -128.
+__device__ __forceinline__ uint32_t fold_partial(uint32_t acc, uint32_t v, int lo, int hi) {
+    const uint32_t keep = (0xffffffffu << (8 * lo)) & (0xffffffffu >> (8 * (4 - hi)));
+    return fold_word(acc, (v & keep) | (kNeg4 & ~keep));
+}
+
+// Bytes [beg, end) of one row in a stage buffer: the whole words are shared
+// by the row's lanes; the partial words at either end, if any, go to its
+// first and last lane. An empty range is [0, 0).
+struct RowBytes {
+    const uint32_t* words;
+    int beg, end;
+    __device__ __forceinline__ int first_word() const { return (beg + 3) >> 2; }
+    __device__ __forceinline__ int whole_words() const { return (end >> 2) - first_word(); }
+    __device__ __forceinline__ uint32_t fold_edges(uint32_t acc, int lane_in_row, int lanes) const {
+        const int w_head = beg >> 2, w_tail = end >> 2;
+        const bool head_partial = beg & 3;
+        if (lane_in_row == 0 && head_partial)  // the word holding beg, maybe end too
+            acc = fold_partial(acc, words[w_head], beg & 3, min(end - 4 * w_head, 4));
+        if (lane_in_row == lanes - 1 && (end & 3) && !(head_partial && w_tail == w_head))
+            acc = fold_partial(acc, words[w_tail], 0, end & 3);
+        return acc;
+    }
+};
+
+__device__ __forceinline__ int peak_of(uint32_t acc) {
+    return max(int(int16_t(acc)), int(int16_t(acc >> 16))) >> 8;
+}
+
+__global__ void __launch_bounds__(kQThreads)
+chip_pass_q_kernel(const int8_t* __restrict__ tc_q, const int8_t* __restrict__ hbm_q,
+                   const float* __restrict__ age, const float* __restrict__ params_q,
+                   uint8_t* __restrict__ out, const QPlan q) {
+    extern __shared__ __align__(128) unsigned char ring[];
+    __shared__ __align__(8) uint64_t full[kQMaxStages], empty[kQMaxStages];
+    __shared__ int carry[2][kQCarryRows];
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t T = q.num_samples;
+    // stage layout: tc part | hbm part | tile ages, each with 16 bytes of slack
+    const int array_bytes = int(q.part_bytes) + 16;
+    const int stage_bytes = 2 * array_bytes + int(q.rows) * 4 + 16;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < q.stages; ++s) {
+            mbar_init(&full[s], 32);                // every producer lane arrives
+            mbar_init(&empty[s], kQConsumerWarps);  // every consumer warp releases
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == kQConsumerWarps) {  // producer: fill the ring ahead of the consumers
+        for (PartWalk w(q); w.valid(); w.next()) {
+            // a fresh barrier passes a wait on parity 1: the first round is free
+            mbar_wait(&empty[w.stage], w.phase ^ 1);
+            unsigned char* buf = ring + w.stage * stage_bytes;
+            uint64_t* bar = &full[w.stage];
+            const auto* src_tc = reinterpret_cast<const unsigned char*>(tc_q + w.row0 * T + w.start);
+            const auto* src_hbm = reinterpret_cast<const unsigned char*>(hbm_q + w.row0 * T + w.start);
+            const auto* src_age = reinterpret_cast<const unsigned char*>(age + w.row0);
+            const Span tc(src_tc, w.len()), hbm(src_hbm, w.len()), ag(src_age, w.age_len());
+            if (lane == 0) {
+                mbar_expect_tx(bar, uint32_t(tc.bulk + hbm.bulk + ag.bulk));
+                if (tc.bulk) bulk_copy(buf + tc.mis + tc.head, src_tc + tc.head, tc.bulk, bar);
+                if (hbm.bulk)
+                    bulk_copy(buf + array_bytes + hbm.mis + hbm.head, src_hbm + hbm.head, hbm.bulk,
+                              bar);
+                if (ag.bulk)
+                    bulk_copy(buf + 2 * array_bytes + ag.mis + ag.head, src_age + ag.head, ag.bulk,
+                              bar);
+            }
+            tc.copy_edge(buf, src_tc, lane);
+            hbm.copy_edge(buf + array_bytes, src_hbm, lane);
+            ag.copy_edge(buf + 2 * array_bytes, src_age, lane);
+            mbar_arrive(bar);  // after this lane's plain stores
+        }
+        return;
+    }
+
+    // consumers: a row of the tile belongs to one lane group of one warp in
+    // every part, so a row cut by parts carries its max in that group alone
+    const float lookback = flush_subnormal(params_q[0]);
+    const float cutoff = flush_subnormal(params_q[1]);
+    const int lane_in_row = lane & (q.lanes - 1);
+    const int rows_per_warp = 32 / q.lanes;
+    const int rows_per_round = kQConsumerWarps * rows_per_warp;  // a power of two
+    const int row_in_warp = lane / q.lanes;
+    const int row_in_round = warp * rows_per_warp + row_in_warp;
+    const int mis_tc = int(reinterpret_cast<uintptr_t>(tc_q) & 15);
+    const int mis_hbm = int(reinterpret_cast<uintptr_t>(hbm_q) & 15);
+    const int mis_age = int(reinterpret_cast<uintptr_t>(age) & 15);
+    for (PartWalk w(q); w.valid(); w.next()) {
+        mbar_wait(&full[w.stage], w.phase);
+        const unsigned char* buf = ring + w.stage * stage_bytes;
+        const auto* words_tc = reinterpret_cast<const uint32_t*>(buf);
+        const auto* words_hbm = reinterpret_cast<const uint32_t*>(buf + array_bytes);
+        const auto* ages = reinterpret_cast<const float*>(buf + 2 * array_bytes + mis_age);
+        const int len = w.len();
+        // rows [r_first, r_last] meet this part: all rows of the tile when it
+        // has one part. Tile-local offsets fit 32 bits (plan_ok checks).
+        const int Ti = int(T), start = int(w.start);
+        int r_first = 0, r_last = int(w.tile_rows) - 1;
+        if (q.parts > 1) {
+            r_first = start / Ti;
+            r_last = len ? (start + len - 1) / Ti : r_first - 1;
+        }
+        // The loop bound depends only on the warp, so whole warps shuffle.
+        for (int r = (r_first & ~(rows_per_round - 1)) + row_in_round;
+             r - row_in_warp <= r_last; r += rows_per_round) {
+            const bool active = r >= r_first && r <= r_last;
+            int beg = 0, end = 0;  // the row's bytes within this part
+            if (active) {
+                beg = max(r * Ti - start, 0);
+                end = min(r * Ti + Ti - start, len);
+            }
+            const RowBytes a{words_tc, active ? mis_tc + beg : 0, active ? mis_tc + end : 0};
+            const RowBytes b{words_hbm, active ? mis_hbm + beg : 0, active ? mis_hbm + end : 0};
+            uint32_t acc_tc = kAccInit, acc_hbm = kAccInit;
+            const int wa = a.first_word(), na = a.whole_words();
+            const int wb = b.first_word(), nb = b.whole_words();
+            // the two arrays may be misaligned differently, so their word
+            // ranges can differ by one
+            for (int k = lane_in_row; k < max(na, nb); k += q.lanes) {
+                if (k < na) acc_tc = fold_word(acc_tc, words_tc[wa + k]);
+                if (k < nb) acc_hbm = fold_word(acc_hbm, words_hbm[wb + k]);
+            }
+            int peak_tc = peak_of(a.fold_edges(acc_tc, lane_in_row, q.lanes));
+            int peak_hbm = peak_of(b.fold_edges(acc_hbm, lane_in_row, q.lanes));
+            for (int off = q.lanes >> 1; off > 0; off >>= 1) {
+                peak_tc = max(peak_tc, __shfl_xor_sync(kFullMask, peak_tc, off));
+                peak_hbm = max(peak_hbm, __shfl_xor_sync(kFullMask, peak_hbm, off));
+            }
+            if (!active || lane_in_row != 0) continue;
+            if (q.parts > 1) {
+                if (r * Ti < start) {  // the row began in an earlier part
+                    peak_tc = max(peak_tc, carry[0][r]);
+                    peak_hbm = max(peak_hbm, carry[1][r]);
+                }
+                if (r * Ti + Ti > start + len) {  // and goes on in the next one
+                    carry[0][r] = peak_tc;
+                    carry[1][r] = peak_hbm;
+                    continue;
+                }
+            }
+            // the -1 sentinel makes has_data implicit: peak == 0 needs a valid zero
+            const bool idle = peak_tc == 0;
+            const bool hbm_active = float(peak_hbm) >= cutoff;
+            const bool eligible = flush_subnormal(ages[r]) >= lookback;
+            out[w.row0 + r] = (idle && !hbm_active && eligible) ? 1 : 0;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[w.stage]);  // this warp is done with the stage
+    }
+}
+
+bool plan_ok(const QPlan& q, int64_t smem_bytes, int64_t grid) {
+    const bool lanes_pow2 = q.lanes >= 1 && q.lanes <= 32 && (q.lanes & (q.lanes - 1)) == 0;
+    const int64_t stage = 2 * (q.part_bytes + 16) + q.rows * 4 + 16;
+    return q.num_chips > 0 && q.num_samples > 0 && q.rows > 0 && q.rows % 16 == 0 &&
+           q.rows * q.num_samples <= INT32_MAX &&  // tile-local offsets are 32-bit
+           q.part_bytes > 0 && q.part_bytes % 16 == 0 && q.parts >= 1 &&
+           int64_t(q.parts) * q.part_bytes >= q.rows * q.num_samples &&
+           (q.parts == 1 || q.rows <= kQCarryRows) && q.stages >= 1 &&
+           q.stages <= kQMaxStages && lanes_pow2 && smem_bytes >= q.stages * stage &&
+           smem_bytes <= kQSmemMax && grid <= 0x7fffffff &&
+           (grid - 1) * q.rows < q.num_chips && q.num_chips <= grid * q.rows;  // a tile a block
 }
 
 }  // namespace
@@ -144,11 +447,17 @@ int tp_chip_pass(const void* tc, const void* hbm, const void* valid, const void*
 
 int tp_chip_pass_q(const void* tc_q, const void* hbm_q, const void* age,
                    const void* params_q, void* out, int64_t num_chips,
-                   int64_t num_samples, void* stream) {
-    chip_pass_q_kernel<<<grid_for(num_chips), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                   int64_t num_samples, int64_t rows_per_tile, int64_t part_bytes,
+                   int parts, int stages, int lanes_per_row, int64_t smem_bytes,
+                   int64_t grid, void* stream) {
+    const QPlan q{num_chips, num_samples, rows_per_tile, part_bytes, parts, stages,
+                  lanes_per_row};
+    if (!plan_ok(q, smem_bytes, grid)) return int(cudaErrorInvalidValue);
+    chip_pass_q_kernel<<<unsigned(grid), kQThreads, size_t(smem_bytes),
+                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(tc_q), static_cast<const int8_t*>(hbm_q),
         static_cast<const float*>(age), static_cast<const float*>(params_q),
-        static_cast<uint8_t*>(out), num_chips, num_samples);
+        static_cast<uint8_t*>(out), q);
     return int(cudaGetLastError());
 }
 

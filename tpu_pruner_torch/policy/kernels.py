@@ -21,6 +21,9 @@ its main path went through the kernels; ``reset_launches`` zeroes it.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -104,6 +107,59 @@ def chip_pass(tc, hbm, valid, age, params) -> torch.Tensor:
     return out.view(torch.bool)
 
 
+# Launch plan of tp_chip_pass_q. A block bulk-copies one tile of R rows of
+# each sample array, in parts of at most _Q_PART_BYTES, through a ring of
+# stages in shared memory, and four warps reduce it; by default each block
+# has one tile, and many blocks share an SM. _Q_CARRY_ROWS and _Q_SMEM_MAX
+# must agree with csrc/chip_pass.cu.
+_Q_PART_BYTES = 6 * 1024
+_Q_CARRY_ROWS = 16
+_Q_SMEM_MAX = 48 * 1024  # dynamic shared memory a block has without opting in
+
+
+class PlanQ(NamedTuple):
+    rows_per_tile: int   # a multiple of 16, so every tile starts 16-byte aligned
+    part_bytes: int      # bytes of each sample array per stage, a multiple of 16
+    parts: int           # stages a tile takes; > 1 only for rows over 384 samples
+    stages: int          # ring depth: 2 to stream a tile in parts, else 1
+    lanes_per_row: int   # a power of two: the lanes that share a row's words
+    smem_bytes: int      # dynamic shared memory of one block
+    grid: int            # blocks: one tile each
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _q_smem(rows: int, part_bytes: int, stages: int) -> int:
+    """Dynamic shared memory of a block: per stage, each sample array's part
+    and the tile's ages, each with 16 bytes of slack for a misaligned base."""
+    return stages * (2 * (part_bytes + 16) + 4 * rows + 16)
+
+
+def _plan_q(num_chips: int, num_samples: int, sm_count: int) -> PlanQ:
+    """Launch plan of the int8 kernel for a [num_chips, num_samples] fleet."""
+    T = num_samples
+    # as many rows as fill a part, but few enough that a small fleet still
+    # gives every SM two blocks
+    rows_fit = _Q_PART_BYTES // T // 16 * 16
+    rows_spread = _cdiv(_cdiv(num_chips, 2 * sm_count), 16) * 16
+    rows = max(_Q_CARRY_ROWS, min(rows_fit, rows_spread))
+    tile_bytes = rows * T
+    part = min(tile_bytes, _Q_PART_BYTES)
+    parts = _cdiv(tile_bytes, part)
+    stages = 1 if parts == 1 else 2
+    # about 64 samples a lane: T=12 -> 1 lane a row, T=360 -> 8, T>1024 -> 32
+    lanes = min(32, 1 << (_cdiv(T, 64) - 1).bit_length())
+    return PlanQ(rows, part, parts, stages, lanes, _q_smem(rows, part, stages),
+                 grid=_cdiv(num_chips, rows))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def chip_pass_q_plain(tc_q, hbm_q, age, params_q) -> torch.Tensor:
     """Plain PyTorch version of the int8 chip pass (bool[C])."""
     peak_tc = tc_q.amax(dim=1)
@@ -131,11 +187,12 @@ def chip_pass_q(tc_q, hbm_q, age, params_q) -> torch.Tensor:
     out = torch.empty(C, dtype=torch.uint8, device=device)
     if C:
         lib = _build.load()
+        plan = _plan_q(C, T, _sm_count(device))
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream().cuda_stream
             status = lib.tp_chip_pass_q(
                 tc_q.data_ptr(), hbm_q.data_ptr(), age.data_ptr(),
-                params_q.data_ptr(), out.data_ptr(), C, T, stream)
+                params_q.data_ptr(), out.data_ptr(), C, T, *plan, stream)
         _build.check(status, "tp_chip_pass_q")
         LAUNCHES["chip_pass_q"] += 1
     return out.view(torch.bool)
