@@ -18,20 +18,39 @@ Phases, each of which exits non-zero on failure:
    127, and one full-width 131,072 x 360 view;
 3. drive the main path at full width -- 131,072 chips x 360 samples in
    8,192 slices -- through evaluate_fleet, evaluate_fleet_c,
-   quantize_fleet_inputs + evaluate_fleet_qc, the analyze evaluation and
-   the analyze CLI; verdicts must equal the fleet's expected verdicts, each
-   path (counts zeroed just before it, read just after) must launch its own
-   kernel exactly once and the other kernel never, and each kernel must
-   equal its plain version on the main path's inputs;
+   quantize_fleet_inputs + evaluate_fleet_qc, the uniform path
+   (assert_uniform_slices + evaluate_fleet_qu: the fleet is 16 chips a
+   slice), the analyze evaluation, and the analyze CLI (batch, --shard in a
+   one-rank group, --stream over two cycles); verdicts must equal the
+   fleet's expected verdicts, each path (counts zeroed just before it, read
+   just after) must launch its own kernel exactly once and the other kernel
+   never, and each kernel must equal its plain version on the main path's
+   inputs;
 4. time each kernel with CUDA events (median over many launches) beside
    its plain version and its bound at the card's published rates: warm
    (back to back) and cold (a 256 MB scratch buffer zeroed before each
    launch, outside the events, so the 50 MB L2 holds none of the inputs);
-   and evaluate_fleet_qc end to end (chip pass + cumsum + boundary
-   gather): its device time, warm and cold, from replays of a CUDA graph
-   of one evaluation, and its eager host wall time per call.
+   the int8 kernel also at T = 12, the streaming window's shape; and, end
+   to end, evaluate_fleet_qc, evaluate_fleet_qu and one streaming cycle
+   (update_window + evaluate_window_qc or _qu): device time, warm and
+   cold, from replays of a CUDA graph of one call, and eager host wall time
+   per call;
+5. the streaming window at full width, K = 12 chunks of 6 new samples a
+   cycle, 14 cycles (the ring wraps): each cycle's evaluate_window_qc and
+   _qu must equal evaluate_fleet_qc over the last <= 12 chunks and the
+   verdicts the chunks were built for; some slices turn idle exactly when
+   their busy chunk is evicted; each window evaluation launches the int8
+   kernel once;
+6. every sharded evaluator and the stream step in a one-rank NCCL group
+   (file:// rendezvous), at full width, against the single-device results;
+7. dryrun_multichip(4) with gloo: four ranks on the one card, each running
+   every sharded path on its rows of a 131,072 x 360 fleet (the uneven
+   case 131,069 chips) against the single-device results; each rank
+   reports its launches per path.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, with each kernel's launches
+per path of phases 3 and 5-7; the line before it is {"end_to_end": {...}},
+phase 4's end-to-end times; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -49,15 +68,25 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from tpu_pruner_torch import analyze
+from tpu_pruner_torch import analyze, entry
 from tpu_pruner_torch.policy import (
-    LAUNCHES, PolicyParams, _build, chip_pass, chip_pass_plain, chip_pass_q,
-    chip_pass_q_plain, evaluate_fleet, evaluate_fleet_c, evaluate_fleet_qc,
-    make_example_fleet, quantize_fleet_inputs, quantize_params,
-    quantize_samples, quantize_samples_device, reset_launches, slice_bounds)
+    LAUNCHES, PolicyParams, _build, assert_uniform_slices, chip_pass, chip_pass_plain,
+    chip_pass_q, chip_pass_q_plain, evaluate_fleet, evaluate_fleet_c, evaluate_fleet_q,
+    evaluate_fleet_qc, evaluate_fleet_qu, evaluate_fleet_sharded, evaluate_fleet_sharded_q,
+    evaluate_fleet_sharded_qc, evaluate_fleet_sharded_qu, evaluate_window_qc,
+    evaluate_window_qu, init_window, make_example_fleet, make_sharded_evaluator,
+    make_sharded_evaluator_q, make_sharded_evaluator_qc, make_sharded_evaluator_qu,
+    quantize_fleet_inputs, quantize_params, quantize_samples, quantize_samples_device,
+    reset_launches, shard_bounds, slice_bounds, update_window)
+from tpu_pruner_torch.policy.kernels import _plan_q, _sm_count
+from tpu_pruner_torch.policy.sharded import run_local, run_stream_local
 
 CHIPS, SAMPLES, SLICES = 131072, 360, 8192
+CPS = CHIPS // SLICES  # the example fleet is uniform: 16 chips a slice
+WINDOW_CHUNKS, CHUNK_SAMPLES, STREAM_CYCLES = 12, 6, 14  # the daemon's window shape
+DRYRUN_RANKS = 4
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12  # f32 outside the tensor cores
@@ -233,7 +262,25 @@ def phase_adversarial(dev) -> dict:
     return err
 
 
-def analyze_cli_check(dev) -> None:
+def counted(by_path: dict, path: str, run):
+    """run() with the kernel counts zeroed just before it and read just after;
+    the counts are recorded under path."""
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    by_path[path] = dict(LAUNCHES)
+    return out
+
+
+def expect_launches(by_path: dict, path: str, want: dict) -> None:
+    want = {name: want.get(name, 0) for name in LAUNCHES}
+    check(by_path[path] == want, f"{path} launched {by_path[path]}, expected {want}")
+
+
+def analyze_cli_check(dev, by_path: dict) -> None:
+    """A small dump through the CLI: batch, --quantize, --shard [--quantize]
+    (a one-rank group on the card) and two --stream cycles; each run must
+    launch its kernel once."""
     doc = {"hbm_threshold": 0.05, "chips": [
         {"slice": "ml/idle", "tc": [0.0] * 6, "hbm": [0.0] * 6, "pod_age_s": 7200},
         {"slice": "ml/busy", "tc": [0.0, 0.7, 0.0], "hbm": [0.1] * 3, "pod_age_s": 7200},
@@ -244,19 +291,30 @@ def analyze_cli_check(dev) -> None:
     ]}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dump.json")
-        with open(path, "w") as f:
-            json.dump(doc, f)
-        for extra in ([], ["--quantize"]):
+        state = os.path.join(tmp, "state.npz")
+        runs = [("analyze CLI", [], "chip_pass"),
+                ("analyze CLI --quantize", ["--quantize"], "chip_pass_q"),
+                ("analyze CLI --shard", ["--shard"], "chip_pass"),
+                ("analyze CLI --shard --quantize", ["--shard", "--quantize"], "chip_pass_q"),
+                ("analyze CLI --stream (cycle 1)", ["--stream", state], "chip_pass_q"),
+                ("analyze CLI --stream (cycle 2)", ["--stream", state], "chip_pass_q")]
+        for cycle, (name, extra, kernel) in enumerate(runs):
+            with open(path, "w") as f:
+                json.dump({**doc, "timestamp": 1000.0 + 180 * cycle}, f)
             out, err = io.StringIO(), io.StringIO()
             with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-                rc = analyze.main([path, "--device", dev.type, *extra])
-            check(rc == 0, f"analyze CLI {extra} returned {rc}: {err.getvalue()}")
+                rc = counted(by_path, name,
+                             lambda: analyze.main([path, "--device", dev.type, *extra]))
+            check(rc == 0, f"{name} returned {rc}: {err.getvalue()}")
+            expect_launches(by_path, name, {kernel: 1})
             result = json.loads(out.getvalue().strip().splitlines()[-1])
             check(result["reclaimable_slices"] == ["ml/idle"] and result["idle_chips"] == 2,
-                  f"analyze CLI {extra} gave {result}")
+                  f"{name} gave {result}")
+        check(result["window"]["filled"] == 2 and result["newly_reclaimable"] == [],
+              f"analyze --stream second cycle gave {result}")
 
 
-def phase_main_path(dev):
+def phase_main_path(dev, by_path: dict):
     t0 = time.perf_counter()
     inputs, expected = make_example_fleet(CHIPS, SAMPLES, SLICES, idle_fraction=0.5,
                                           seed=0, device=dev)
@@ -275,6 +333,10 @@ def phase_main_path(dev):
         check(int(c.sum()) == CHIPS // 2, f"analyze idle chips (quantize={quantize})")
         return v
 
+    def uniform():
+        check(assert_uniform_slices(slice_id, CPS) == SLICES, "uniform fleet")
+        return evaluate_fleet_qu(q[0], q[1], q[2], q[4], CPS)[0]
+
     # Each path runs with the counts zeroed just before it and read just
     # after: it must launch its own kernel exactly once and the other never.
     paths = {
@@ -283,27 +345,21 @@ def phase_main_path(dev):
             tc, hbm, valid, age, bounds, parr)[0]),
         "evaluate_fleet_qc": ("chip_pass_q", lambda: evaluate_fleet_qc(
             q[0], q[1], q[2], bounds, q[4])[0]),
+        "evaluate_fleet_qu": ("chip_pass_q", uniform),
         "analyze.evaluate_loaded": ("chip_pass", lambda: loaded(False)),
         "analyze.evaluate_loaded --quantize": ("chip_pass_q", lambda: loaded(True)),
     }
-    by_path = {}
     t0 = time.perf_counter()
     for path, (kernel, run) in paths.items():
-        reset_launches()
-        v = run()
-        torch.cuda.synchronize()
-        counts = dict(LAUNCHES)
+        v = counted(by_path, path, run)
         v = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
         check(np.array_equal(v, expected), f"{path} verdicts")
-        want = {name: int(name == kernel) for name in counts}
-        check(counts == want, f"{path} launched {counts}, expected {want}")
-        by_path[path] = counts
+        expect_launches(by_path, path, {kernel: 1})
     main_s = time.perf_counter() - t0
-    launches = {name: {path: c[name] for path, c in by_path.items() if c[name]}
-                for name in LAUNCHES}
-    analyze_cli_check(dev)  # small dump through the CLI; its launches are not counted
+    analyze_cli_check(dev, by_path)
     log(f"phase 3: main path {CHIPS}x{SAMPLES} in {SLICES} slices ok "
-        f"(setup {setup_s:.3f} s, evaluations {main_s:.3f} s, launches {launches})")
+        f"(setup {setup_s:.3f} s, evaluations {main_s:.3f} s, launches "
+        f"{ {p: c for p, c in by_path.items()} })")
 
     # each kernel against its plain version on the main path's own inputs
     err = {
@@ -313,7 +369,7 @@ def phase_main_path(dev):
                                 chip_pass_q_plain(q[0], q[1], q[2], q[4])),
     }
     check(not any(err.values()), f"full-width kernel mismatch {err}")
-    return launches, inputs, q, err
+    return inputs, expected, q, err
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor | None = None) -> float:
@@ -356,7 +412,24 @@ def graph_of(fn) -> torch.cuda.CUDAGraph:
     return graph
 
 
-def phase_timing(launches, inputs, q, err):
+def end_to_end_ms(name: str, fn, flush: torch.Tensor) -> dict:
+    """Device time of one call of fn, warm and cold, from replays of a CUDA
+    graph of it, and its eager host wall time per call. A call is a dozen
+    small launches, so queued eager calls run at the host's pace."""
+    graph = graph_of(fn)
+    warm, cold = time_ms(graph.replay, 200), time_ms(graph.replay, 200, flush)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 50 * 1e3
+    log(f"phase 4: {name} end to end: device {warm:.4f} ms warm, {cold:.4f} ms cold "
+        f"(CUDA graph replay); eager host wall {wall:.4f} ms per call")
+    return {"ms": warm, "ms_cold": cold, "wall_ms": wall}
+
+
+def phase_timing(inputs, q, err):
     tc, hbm, valid, age, slice_id, parr = inputs
     tc_q, hbm_q = q[0], q[1]
     parr_q = q[4]
@@ -370,7 +443,7 @@ def phase_timing(launches, inputs, q, err):
                         lambda: chip_pass_q_plain(tc_q, hbm_q, age, parr_q),
                         sum(x.nbytes for x in (tc_q, hbm_q, age, parr_q)) + C),
     }
-    rows = []
+    rows = {}
     for name, (kernel, plain, nbytes) in work.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = OPS_PER_SAMPLE[name] * C * T / SCALAR_OPS_PER_S * 1e3
@@ -378,36 +451,202 @@ def phase_timing(launches, inputs, q, err):
         ms = time_ms(kernel, 200)
         ms_cold = time_ms(kernel, 200, flush)
         plain_ms = time_ms(plain, 20)
-        rows.append({
+        rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": sum(launches[name].values()),
-            "launches_by_path": launches[name],
+            "replaces": REPLACES[name],
             "max_abs_err": err[name], "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "bytes": nbytes,
-        })
+        }
         log(f"phase 4: {name}: kernel {ms:.4f} ms warm, {ms_cold:.4f} ms cold, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes; "
             f"{bound_ms / ms:.3f} of the bound warm, {bound_ms / ms_cold:.3f} cold)")
+
+    # the streaming window's shape: a full ring of 12 chunk maxima per chip
+    tc_new, hbm_new = tc_q[:, :CHUNK_SAMPLES].contiguous(), hbm_q[:, :CHUNK_SAMPLES].contiguous()
+    state = init_window(C, WINDOW_CHUNKS, device=tc.device)
+    for _ in range(WINDOW_CHUNKS):
+        state = update_window(state, tc_new, hbm_new)
+    ring_bytes = sum(x.nbytes for x in (state[0], state[1], age, parr_q)) + C
+    ring_ms = time_ms(lambda: chip_pass_q(state[0], state[1], age, parr_q), 200)
+    ring_bound = ring_bytes / HBM_BYTES_PER_S * 1e3
+    plan = _plan_q(C, WINDOW_CHUNKS, _sm_count(tc.device))
+    rows["chip_pass_q"]["window"] = {"T": WINDOW_CHUNKS, "ms": ring_ms, "bound_ms": ring_bound,
+                                     "bytes": ring_bytes, "plan": plan._asdict()}
+    log(f"phase 4: chip_pass_q at T={WINDOW_CHUNKS}: kernel {ring_ms:.4f} ms warm, bound "
+        f"{ring_bound:.4f} ms ({ring_bytes} bytes; {ring_bound / ring_ms:.3f} of the bound; "
+        f"plan {plan})")
+
     bounds = slice_bounds(slice_id, SLICES, device=tc.device)
-    qc = lambda: evaluate_fleet_qc(tc_q, hbm_q, age, bounds, parr_q)  # noqa: E731
-    # An evaluation is a dozen small launches, so queued eager calls run at
-    # the host's pace; its device time comes from replays of a CUDA graph.
-    graph = graph_of(qc)
-    qc_ms, qc_cold = time_ms(graph.replay, 200), time_ms(graph.replay, 200, flush)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        qc()
-    torch.cuda.synchronize()
-    qc_wall = (time.perf_counter() - t0) / 50 * 1e3
-    log(f"phase 4: evaluate_fleet_qc end to end (chip pass + cumsum + gather): device "
-        f"{qc_ms:.4f} ms warm, {qc_cold:.4f} ms cold (CUDA graph replay); eager host wall "
-        f"{qc_wall:.4f} ms per call")
+    e2e = {
+        "evaluate_fleet_qc": lambda: evaluate_fleet_qc(tc_q, hbm_q, age, bounds, parr_q),
+        "evaluate_fleet_qu": lambda: evaluate_fleet_qu(tc_q, hbm_q, age, parr_q, CPS),
+        # one cycle's work; the cursor does not advance between timed calls
+        "streaming cycle, update_window + evaluate_window_qc": lambda: evaluate_window_qc(
+            update_window(state, tc_new, hbm_new), age, bounds, parr_q),
+        "streaming cycle, update_window + evaluate_window_qu": lambda: evaluate_window_qu(
+            update_window(state, tc_new, hbm_new), age, parr_q, CPS),
+    }
+    end_to_end = {name: end_to_end_ms(name, fn, flush) for name, fn in e2e.items()}
     amax_ms = time_ms(lambda: torch.amax(tc, 1), 50)
     log(f"context (not a port of either kernel): torch.amax(tc, 1) {amax_ms:.4f} ms")
-    return rows
+    return list(rows.values()), end_to_end
+
+
+def stream_chunks(dev):
+    """STREAM_CYCLES chunks of CHUNK_SAMPLES new int8 samples for the
+    full-width fleet, and per cycle the slice verdicts they were built for.
+
+    A slice's role is its id mod 4: idle throughout; busy in every cycle;
+    busy only in cycle 0; busy only in cycle 1. The last two turn idle
+    exactly when their busy chunk leaves the window (cycles 12 and 13), and
+    the last is idle before its busy cycle too. About 10% of the samples are
+    invalid (-1), never the first of a chunk, so every chip has data.
+    """
+    rng = np.random.default_rng(2024)
+    role = np.arange(SLICES) % 4
+    chip_role = np.repeat(role, CPS)
+    chunks, expected = [], []
+    for cycle in range(STREAM_CYCLES):
+        busy = (chip_role == 1) | ((chip_role == 2) & (cycle == 0)) \
+            | ((chip_role == 3) & (cycle == 1))
+        invalid = rng.uniform(size=(CHIPS, CHUNK_SAMPLES)) < 0.1
+        invalid[:, 0] = False
+        tc = np.where(busy[:, None], rng.integers(1, 101, size=(CHIPS, CHUNK_SAMPLES)), 0)
+        hbm = rng.integers(0, 40, size=(CHIPS, CHUNK_SAMPLES))
+        chunks.append(tuple(torch.from_numpy(np.where(invalid, -1, x).astype(np.int8)).to(dev)
+                            for x in (tc, hbm)))
+        window = range(max(0, cycle - WINDOW_CHUNKS + 1), cycle + 1)
+        expected.append(~((role == 1) | ((role == 2) & (0 in window))
+                          | ((role == 3) & (1 in window))))
+    return chunks, expected
+
+
+def phase_streaming(dev, by_path: dict):
+    """The streaming window over STREAM_CYCLES cycles at full width."""
+    chunks, expected = stream_chunks(dev)
+    check(not np.array_equal(expected[11], expected[12])
+          and not np.array_equal(expected[12], expected[13])
+          and not np.array_equal(expected[0], expected[1]),
+          "the streaming run must turn slices idle by eviction")
+    age = torch.full((CHIPS,), 7200.0, device=dev)
+    params = PolicyParams(hbm_threshold=0.5)  # the hbm samples (<= 39%) rescue no chip
+    pq = torch.from_numpy(quantize_params(
+        np.array([params.lookback_s, params.hbm_cutoff()], np.float32))).to(dev)
+    bounds = slice_bounds(np.repeat(np.arange(SLICES, dtype=np.int32), CPS), SLICES,
+                          device=dev)
+    state = init_window(CHIPS, WINDOW_CHUNKS, device=dev)
+    totals = {"update_window + evaluate_window_qc": 0, "evaluate_window_qu": 0}
+    verdicts_qu = []
+    for cycle, (tc_new, hbm_new) in enumerate(chunks):
+        def qc_cycle():
+            nonlocal state
+            state = update_window(state, tc_new, hbm_new)
+            return evaluate_window_qc(state, age, bounds, pq)
+
+        v, c = counted(by_path, "update_window + evaluate_window_qc", qc_cycle)
+        expect_launches(by_path, "update_window + evaluate_window_qc", {"chip_pass_q": 1})
+        vu, cu = counted(by_path, "evaluate_window_qu",
+                         lambda: evaluate_window_qu(state, age, pq, CPS))
+        expect_launches(by_path, "evaluate_window_qu", {"chip_pass_q": 1})
+        for path in totals:
+            totals[path] += by_path[path]["chip_pass_q"]
+        window = chunks[max(0, cycle - WINDOW_CHUNKS + 1):cycle + 1]
+        full_v, full_c = evaluate_fleet_qc(torch.cat([w[0] for w in window], dim=1),
+                                           torch.cat([w[1] for w in window], dim=1),
+                                           age, bounds, pq)
+        check(torch.equal(v, full_v) and torch.equal(c, full_c),
+              f"cycle {cycle}: window_qc differs from the full re-evaluation")
+        check(torch.equal(vu, v) and torch.equal(cu, c), f"cycle {cycle}: window_qu != qc")
+        check(np.array_equal(v.cpu().numpy(), expected[cycle]), f"cycle {cycle}: verdicts")
+        verdicts_qu.append(vu)
+    for path, n in totals.items():
+        by_path[path] = {"chip_pass": 0, "chip_pass_q": n}
+    err = mask_err(chip_pass_q(state[0], state[1], age, pq),
+                   chip_pass_q_plain(state[0], state[1], age, pq))
+    check(err == 0, "chip_pass_q differs from its plain version on the window ring")
+    log(f"phase 5: streaming window {CHIPS} chips, K={WINDOW_CHUNKS}, {CHUNK_SAMPLES} new "
+        f"samples a cycle, {STREAM_CYCLES} cycles: window_qc and _qu equal the full "
+        f"re-evaluation every cycle; idle slices by cycle "
+        f"{[int(e.sum()) for e in expected]}")
+    return {"chunks": chunks, "age": age, "pq": pq, "verdicts_qu": verdicts_qu}, err
+
+
+def phase_sharded_one_rank(dev, by_path: dict, inputs, expected, q, stream) -> None:
+    """Every sharded evaluator in a one-rank NCCL group equals the
+    single-device results, launching its kernel once."""
+    bounds = slice_bounds(inputs[4], SLICES, device=dev)
+    ref = {"f32": evaluate_fleet(*inputs, num_slices=SLICES),
+           "q": evaluate_fleet_q(*q, num_slices=SLICES)}
+    runs = {
+        "evaluate_fleet_sharded": ("chip_pass", "f32", lambda: evaluate_fleet_sharded(
+            *inputs, num_slices=SLICES)),
+        "evaluate_fleet_sharded_q": ("chip_pass_q", "q", lambda: evaluate_fleet_sharded_q(
+            *q, num_slices=SLICES)),
+        "evaluate_fleet_sharded_qc": ("chip_pass_q", "q", lambda: evaluate_fleet_sharded_qc(
+            q[0], q[1], q[2], bounds, q[4])),
+        "evaluate_fleet_sharded_qu": ("chip_pass_q", "q", lambda: evaluate_fleet_sharded_qu(
+            q[0], q[1], q[2], q[4], CPS)),
+        "make_sharded_evaluator": ("chip_pass", "f32", lambda: run_local(
+            make_sharded_evaluator, SLICES, *inputs)),
+        "make_sharded_evaluator_q": ("chip_pass_q", "q", lambda: run_local(
+            make_sharded_evaluator_q, SLICES, *q)),
+        "make_sharded_evaluator_qc": ("chip_pass_q", "q", lambda: run_local(
+            make_sharded_evaluator_qc, SLICES, q[0], q[1], q[2],
+            shard_bounds(bounds, 1, CHIPS, device=dev), q[4])),
+        "make_sharded_evaluator_qu": ("chip_pass_q", "q", lambda: run_local(
+            make_sharded_evaluator_qu, CPS, q[0], q[1], q[2], q[4])),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rdv"),
+                                rank=0, world_size=1)
+        try:
+            for path, (kernel, kind, run) in runs.items():
+                name = f"one-rank NCCL: {path}"
+                v, c = counted(by_path, name, run)
+                expect_launches(by_path, name, {kernel: 1})
+                check(np.array_equal(v.cpu().numpy(), expected)
+                      and torch.equal(v, ref[kind][0]) and torch.equal(c, ref[kind][1]),
+                      f"{name} differs from the single-device evaluation")
+            name = "one-rank NCCL: make_sharded_stream_step"
+            cycles = counted(by_path, name, lambda: run_stream_local(
+                CPS, WINDOW_CHUNKS, [ch[0] for ch in stream["chunks"]],
+                [ch[1] for ch in stream["chunks"]], stream["age"], stream["pq"]))
+            expect_launches(by_path, name, {"chip_pass_q": STREAM_CYCLES})
+            for cycle, (v, *_) in enumerate(cycles):
+                check(torch.equal(v, stream["verdicts_qu"][cycle]),
+                      f"{name}: cycle {cycle} differs from update_window + evaluate_window_qu")
+        finally:
+            dist.destroy_process_group()
+    log(f"phase 6: {len(runs) + 1} sharded paths in a one-rank NCCL group equal the "
+        "single-device results")
+
+
+def phase_dryrun(by_path: dict) -> None:
+    """dryrun_multichip over DRYRUN_RANKS gloo ranks on the one card."""
+    t0 = time.perf_counter()
+    summaries = entry.dryrun_multichip(DRYRUN_RANKS, device="cuda", backend="gloo",
+                                       chips_per_rank=CHIPS // DRYRUN_RANKS,
+                                       num_samples=SAMPLES, timeout_s=600)
+    want = {"make_sharded_evaluator": {"chip_pass": 1},
+            "evaluate_fleet_sharded": {"chip_pass": 1},
+            "evaluate_fleet_sharded_q": {"chip_pass_q": 1},
+            "evaluate_fleet_sharded_qc": {"chip_pass_q": 1},
+            "evaluate_fleet_sharded_qu": {"chip_pass_q": 1},
+            "make_sharded_stream_step": {"chip_pass_q": entry.STREAM_CHUNKS + 2}}
+    want = {path: {name: w.get(name, 0) for name in LAUNCHES} for path, w in want.items()}
+    for rank, s in enumerate(summaries):
+        check(s["launches"] == want, f"dryrun rank {rank} launched {s['launches']}, "
+              f"expected {want}")
+        check(s["num_chips"] == CHIPS and s["odd_chips"] % DRYRUN_RANKS,
+              f"dryrun rank {rank} sizes {s}")
+    for path in want:
+        by_path[f"dryrun_multichip({DRYRUN_RANKS}, gloo): {path}"] = {
+            name: sum(s["launches"][path][name] for s in summaries) for name in LAUNCHES}
+    log(f"phase 7: dryrun_multichip({DRYRUN_RANKS}) with gloo on one card, "
+        f"{CHIPS} chips: every rank verified every sharded path in "
+        f"{time.perf_counter() - t0:.3f} s")
 
 
 def ptxas_report(proc: subprocess.Popen) -> None:
@@ -450,9 +689,20 @@ def main() -> int:
 
     err = phase_adversarial(dev)
     err["chip_pass_q"] = max(err["chip_pass_q"], phase_int8_edges(dev))
-    launches, inputs, q, main_err = phase_main_path(dev)
+    by_path = {}
+    inputs, expected, q, main_err = phase_main_path(dev, by_path)
     err = {name: max(err[name], main_err[name]) for name in err}
-    rows = phase_timing(launches, inputs, q, err)
+    rows, end_to_end = phase_timing(inputs, q, err)
+    stream, ring_err = phase_streaming(dev, by_path)
+    phase_sharded_one_rank(dev, by_path, inputs, expected, q, stream)
+    phase_dryrun(by_path)
+    for row in rows:
+        name = row["name"]
+        row["max_abs_err"] = max(row["max_abs_err"], ring_err if name == "chip_pass_q" else 0)
+        row["launches_by_path"] = {p: c[name] for p, c in by_path.items() if c[name]}
+        row["launches"] = sum(row["launches_by_path"].values())
+        check(row["launches"] > 0, f"{name} was never launched on the main path")
+    print(json.dumps({"end_to_end": end_to_end}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

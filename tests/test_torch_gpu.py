@@ -140,3 +140,85 @@ def test_creating_tensors_without_a_card_raises():
     inputs, _ = tp.make_example_fleet(16, 4, 2, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tp.fleet_from_numpy(tuple(x.numpy() for x in inputs))
+
+
+@pytest.mark.gpu
+def test_uniform_and_window_on_card_match_cpu(cuda):
+    """evaluate_fleet_qu and the streaming window on the card equal the CPU,
+    each evaluation one launch of the int8 kernel."""
+    rng = np.random.default_rng(11)
+    C, S, K = 4096, 256, 12
+    gpu_inputs, expected = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device=cuda)
+    cpu_inputs, _ = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device="cpu")
+    assert tp.assert_uniform_slices(gpu_inputs[4], C // S) == S
+    gq, cq = tp.quantize_fleet_inputs(gpu_inputs), tp.quantize_fleet_inputs(cpu_inputs)
+    before = tp.LAUNCHES["chip_pass_q"]
+    v, c = tp.evaluate_fleet_qu(gq[0], gq[1], gq[2], gq[4], C // S)
+    assert tp.LAUNCHES["chip_pass_q"] == before + 1
+    np.testing.assert_array_equal(v.cpu().numpy(), expected)
+    v_cpu, c_cpu = tp.evaluate_fleet_qu(cq[0], cq[1], cq[2], cq[4], C // S)
+    assert torch.equal(v.cpu(), v_cpu) and torch.equal(c.cpu(), c_cpu)
+
+    bounds = tp.slice_bounds(gpu_inputs[4], S, device=cuda)
+    bounds_cpu = tp.slice_bounds(cpu_inputs[4], S, device="cpu")
+    state, state_cpu = tp.init_window(C, K, device=cuda), tp.init_window(C, K, device="cpu")
+    for _ in range(K + 2):
+        tc_new = torch.from_numpy(rng.integers(-1, 3, size=(C, 6), dtype=np.int8))
+        hbm_new = torch.from_numpy(rng.integers(-1, 2, size=(C, 6), dtype=np.int8))
+        state = tp.update_window(state, tc_new.to(cuda), hbm_new.to(cuda))
+        state_cpu = tp.update_window(state_cpu, tc_new, hbm_new)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(state, state_cpu))
+        before = tp.LAUNCHES["chip_pass_q"]
+        got = tp.evaluate_window_qc(state, gq[2], bounds, gq[4])
+        got_u = tp.evaluate_window_qu(state, gq[2], gq[4], C // S)
+        assert tp.LAUNCHES["chip_pass_q"] == before + 2
+        want = tp.evaluate_window_qc(state_cpu, cq[2], bounds_cpu, cq[4])
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got_u[0], got[0]) and torch.equal(got_u[1], got[1])
+
+
+@pytest.mark.gpu
+def test_sharded_one_rank_nccl_matches_single_device(cuda, tmp_path):
+    """Every sharded evaluator in a one-rank NCCL group equals the
+    single-device evaluation on the card."""
+    import torch.distributed as dist
+
+    from tpu_pruner_torch.policy import sharded
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        C, S = 4096, 256
+        inputs, expected = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device=cuda)
+        q = tp.quantize_fleet_inputs(inputs)
+        bounds = tp.slice_bounds(inputs[4], S, device=cuda)
+        ref_v, ref_c = tp.evaluate_fleet(*inputs, num_slices=S)
+        runs = {
+            "evaluate_fleet_sharded": lambda: tp.evaluate_fleet_sharded(*inputs, num_slices=S),
+            "evaluate_fleet_sharded_q": lambda: tp.evaluate_fleet_sharded_q(*q, num_slices=S),
+            "evaluate_fleet_sharded_qc": lambda: tp.evaluate_fleet_sharded_qc(
+                q[0], q[1], q[2], bounds, q[4]),
+            "evaluate_fleet_sharded_qu": lambda: tp.evaluate_fleet_sharded_qu(
+                q[0], q[1], q[2], q[4], C // S),
+            "make_sharded_evaluator": lambda: sharded.run_local(
+                tp.make_sharded_evaluator, S, *inputs),
+            "make_sharded_evaluator_q": lambda: sharded.run_local(
+                tp.make_sharded_evaluator_q, S, *q),
+            "make_sharded_evaluator_qc": lambda: sharded.run_local(
+                tp.make_sharded_evaluator_qc, S, q[0], q[1], q[2],
+                tp.shard_bounds(bounds, 1, C, device=cuda), q[4]),
+            "make_sharded_evaluator_qu": lambda: sharded.run_local(
+                tp.make_sharded_evaluator_qu, C // S, q[0], q[1], q[2], q[4]),
+        }
+        for name, run in runs.items():
+            before = sum(tp.LAUNCHES.values())
+            v, c = run()
+            torch.cuda.synchronize()
+            assert sum(tp.LAUNCHES.values()) == before + 1, name
+            np.testing.assert_array_equal(v.cpu().numpy(), expected, err_msg=name)
+            assert torch.equal(v, ref_v) and torch.equal(c, ref_c), name
+        cycles = sharded.run_stream_local(C // S, 3, [q[0][:, i:i + 1] for i in range(5)],
+                                          [q[1][:, i:i + 1] for i in range(5)], q[2], q[4])
+        assert torch.equal(cycles[-1][0], ref_v)
+    finally:
+        dist.destroy_process_group()

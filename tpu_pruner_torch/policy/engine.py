@@ -82,11 +82,17 @@ def slice_verdicts(candidate, slice_id, num_slices: int):
     One busy chip anywhere in the slice vetoes it; a slice id with no chips
     is never idle.
     """
+    busy, chips = slice_counts(candidate, slice_id, num_slices)
+    return (busy == 0) & (chips > 0)
+
+
+def slice_counts(candidate, slice_id, num_slices: int):
+    """Per-slice (busy chips, chips) as int32[S] each, by index_add_ scatter."""
     busy = torch.zeros(num_slices, dtype=torch.int32, device=candidate.device)
     busy.index_add_(0, slice_id, (~candidate).to(torch.int32))
     chips = torch.zeros(num_slices, dtype=torch.int32, device=candidate.device)
     chips.index_add_(0, slice_id, torch.ones_like(slice_id, dtype=torch.int32))
-    return (busy == 0) & (chips > 0)
+    return busy, chips
 
 
 def evaluate_fleet(tc_util, hbm_util, valid, pod_age_s, slice_id, params_arr,
@@ -189,11 +195,16 @@ def slice_bounds(slice_id, num_slices: int, device="cuda") -> torch.Tensor:
 
 def slice_verdicts_contiguous(candidate, bounds):
     """slice_verdicts for slice-contiguous chips via cumsum + boundary gather."""
+    busy, chips = slice_counts_contiguous(candidate, bounds)
+    return (busy == 0) & (chips > 0)
+
+
+def slice_counts_contiguous(candidate, bounds):
+    """Per-slice (busy chips, chips) as int32[S] each, by cumsum + gather."""
     busy_cum = torch.cumsum((~candidate).to(torch.int32), dim=0)
     busy_cum = torch.cat([busy_cum.new_zeros(1), busy_cum])
     start, end = bounds[:-1].long(), bounds[1:].long()
-    busy = busy_cum[end] - busy_cum[start]
-    return (busy == 0) & (end > start)
+    return busy_cum[end] - busy_cum[start], (end - start).to(torch.int32)
 
 
 def evaluate_fleet_c(tc_util, hbm_util, valid, pod_age_s, bounds, params_arr):
@@ -206,6 +217,111 @@ def evaluate_fleet_qc(tc_q, hbm_q, pod_age_s, bounds, params_arr_q):
     """evaluate_fleet_q for slice-contiguous fleets (int8 storage + cumsum)."""
     candidate = chip_pass_q(tc_q, hbm_q, pod_age_s, params_arr_q)
     return slice_verdicts_contiguous(candidate, bounds), candidate
+
+
+def assert_uniform_slices(slice_id, chips_per_slice: int) -> int:
+    """Host-side precondition for evaluate_fleet_qu; returns num_slices.
+
+    The reshape reduction cannot detect a heterogeneous or ungrouped fleet
+    on its own: a wrong layout would silently merge neighbour slices'
+    verdicts. Run this at ingest, where the layout is decided.
+    """
+    if isinstance(slice_id, torch.Tensor):
+        slice_id = slice_id.cpu().numpy()
+    sid = np.asarray(slice_id)
+    if sid.size % chips_per_slice != 0:
+        raise ValueError(
+            f"{sid.size} chips do not divide into slices of {chips_per_slice}")
+    num_slices = sid.size // chips_per_slice
+    expected = np.repeat(np.arange(num_slices, dtype=sid.dtype), chips_per_slice)
+    if not np.array_equal(sid, expected):
+        raise ValueError(
+            "fleet is not uniform-contiguous (expected slice ids "
+            f"repeat(arange({num_slices}), {chips_per_slice})); use "
+            "evaluate_fleet_qc with slice_bounds instead")
+    return num_slices
+
+
+def evaluate_fleet_qu(tc_q, hbm_q, pod_age_s, params_arr_q, chips_per_slice: int):
+    """Uniform-fleet path: int8 storage + equal-size contiguous slices.
+
+    The slice reduction is a reshape to [S, chips_per_slice] and an AND over
+    the minor axis. The layout contract is not detectable in here: validate
+    it at ingest with assert_uniform_slices.
+    """
+    candidate = chip_pass_q(tc_q, hbm_q, pod_age_s, params_arr_q)
+    return candidate.view(-1, chips_per_slice).all(dim=1), candidate
+
+
+# --- streaming sliding-window evaluation ------------------------------------
+#
+# Each daemon cycle brings only the samples of one check interval, so the
+# window keeps a ring of K per-chunk maxima per chip (one chunk = one
+# cycle's samples): a cycle reduces its new chunk, writes one ring column,
+# and the verdict pass reads [C, K] chunk maxima instead of [C, T] samples.
+# Eviction is the overwrite of the oldest column. An unfilled or all-invalid
+# chunk has maximum -1, "no data", so partial windows and scrape gaps need
+# no special case. The rings stay row-major [C, K], the layout the int8
+# kernel reads, and are written one column at a time.
+
+
+def init_window(num_chips: int, num_chunks: int, device="cuda"):
+    """Fresh streaming state (tc_ring, hbm_ring, cursor), all no-data.
+
+    The rings are int8[C, K] of INVALID_Q; the cursor, the column the next
+    chunk goes to, is a 0-d int32 tensor on the rings' device.
+    """
+    device = resolve_device(device)
+    ring = torch.full((num_chips, num_chunks), INVALID_Q, dtype=torch.int8,
+                      device=device)
+    return ring, ring.clone(), torch.zeros((), dtype=torch.int32, device=device)
+
+
+def update_window(state, tc_q_new, hbm_q_new):
+    """Fold one cycle's new int8 samples ([C, T_new]) into the rings.
+
+    Overwrites the oldest chunk (sliding-window eviction). The rings are
+    updated in place, so no ring is allocated per cycle; the returned state
+    holds the same rings and the advanced cursor.
+    """
+    tc_ring, hbm_ring, cursor = state
+    column = cursor.view(1).long()
+    tc_ring.index_copy_(1, column, tc_q_new.amax(dim=1, keepdim=True))
+    hbm_ring.index_copy_(1, column, hbm_q_new.amax(dim=1, keepdim=True))
+    return tc_ring, hbm_ring, (cursor + 1) % tc_ring.shape[1]
+
+
+def evaluate_window_qc(state, pod_age_s, bounds, params_arr_q):
+    """Slice verdicts from streaming state (contiguous fleets).
+
+    The ring of chunk maxima is a valid [C, K] sample tensor for the qc
+    evaluator: the max over chunk maxima is the max over every sample in
+    the window, and all-sentinel rows stay non-candidates.
+    """
+    tc_ring, hbm_ring, _ = state
+    return evaluate_fleet_qc(tc_ring, hbm_ring, pod_age_s, bounds, params_arr_q)
+
+
+def evaluate_window_qu(state, pod_age_s, params_arr_q, chips_per_slice: int):
+    """evaluate_window_qc for uniform fleets (the reshape reduction)."""
+    tc_ring, hbm_ring, _ = state
+    return evaluate_fleet_qu(tc_ring, hbm_ring, pod_age_s, params_arr_q,
+                             chips_per_slice)
+
+
+def window_from_numpy(state, device="cuda"):
+    """Streaming state as numpy (int8 rings, an integer cursor) -> tensors.
+
+    Carries a window across from the JAX package's (tc_ring, hbm_ring,
+    cursor), or from an ``analyze --stream`` state file of either package.
+    """
+    device = resolve_device(device)
+    tc_ring, hbm_ring, cursor = state
+    # copies: update_window writes the rings in place, and on the CPU
+    # from_numpy would share (possibly read-only) numpy memory
+    rings = tuple(torch.from_numpy(np.array(x, dtype=np.int8, order="C")).to(device)
+                  for x in (tc_ring, hbm_ring))
+    return (*rings, torch.tensor(int(cursor), dtype=torch.int32, device=device))
 
 
 def quantize_fleet_inputs(inputs):
