@@ -127,20 +127,23 @@ def test_module_entry_point_matches_reference(tmp_path):
     assert outs[1]["reclaimable_slices"] == ["ml/idle"]
 
 
-# option -> (argv, what stderr says): modes the port refuses, with exit code 2
+# option -> (argv, what stderr says): combinations refused with exit code 2
 REFUSED = {
     "--shard": (["--shard", "--stream", "state.npz"], "--shard does not apply to --stream"),
     "--stream=state.npz": (["--stream=state.npz", "--window-chunks", "0"],
                            "--window-chunks must be >= 1"),
-    "--explain": (["--explain"], "not ported"),
+    "--explain": (["--explain", "ml/p0"],
+                  "--explain needs exactly one of --audit-log or --decisions-url"),
 }
 
 
 @pytest.mark.parametrize("option", sorted(REFUSED))
 def test_unported_modes_are_refused(tmp_path, option):
-    """Modes the port does not run are refused before any dump is read:
-    report modes that are not ported, --stream with --shard (as the
-    reference refuses it), and an empty window."""
+    """Combinations the CLI does not run are refused before any file is
+    read, as the reference refuses them: --stream with --shard, an empty
+    window, and --explain without a decision source. (Every mode is
+    ported; tests/test_torch_reports.py holds each refusal against the
+    reference's.)"""
     argv, message = REFUSED[option]
     err = io.StringIO()
     with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as exc:
@@ -317,19 +320,37 @@ def test_shard_without_torchrun_runs_one_rank(tmp_path, extra):
 
 
 def test_port_imports_neither_jax_nor_reference(tmp_path):
-    """The port and chip_smoke.py load no JAX and nothing of tpu_pruner."""
+    """The port and chip_smoke.py load no JAX and nothing of tpu_pruner,
+    and neither does a report mode run through the port's CLI; importing
+    the CLI builds no native code."""
+    ledger = tmp_path / "ledger.jsonl"
+    ledger.write_text(json.dumps(
+        {"cluster": "c1", "epoch": 2, "schema": 2, "workload": "Deployment/ml/w",
+         "kind": "Deployment", "namespace": "ml", "name": "w", "chips": 4,
+         "state": "paused", "idle_seconds": 600.0, "active_seconds": 0.0,
+         "reclaimed_chip_seconds": 2400.0, "pauses": 1, "resumes": 0}) + "\n")
     probe = (
-        "import sys\n"
+        "import runpy, sys\n"
         "import chip_smoke, tpu_pruner_torch, tpu_pruner_torch.analyze\n"
         "import tpu_pruner_torch.policy, tpu_pruner_torch.policy.cuda_engine\n"
         "import tpu_pruner_torch.entry, tpu_pruner_torch.policy.sharded\n"
+        "import tpu_pruner_torch.native, tpu_pruner_torch.dump\n"
+        "sys.argv = ['analyze', '--fleet-report', '--ledger-file', sys.argv[1]]\n"
+        "try:\n"
+        "    runpy.run_module('tpu_pruner_torch.analyze', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code in (0, None), exc.code\n"
+        "assert tpu_pruner_torch.native._lib is None\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'jaxlib' or m == 'tpu_pruner'\n"
         "             or m.startswith('tpu_pruner.'))\n"
-        "print(','.join(bad))\n"
+        "print('BAD=' + ','.join(bad))\n"
     )
-    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", probe, str(ledger)], capture_output=True,
                           text=True, timeout=300, cwd=REPO_ROOT,
                           env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == ""
+    report, bad = proc.stdout.strip().splitlines()
+    assert json.loads(report)["reclaimed_chip_hours"] == round(2400.0 / 3600, 3)
+    assert "across 1 tracked workload(s)" in proc.stderr
+    assert bad == "BAD="
