@@ -46,7 +46,16 @@ Phases, each of which exits non-zero on failure:
 7. dryrun_multichip(4) with gloo: four ranks on the one card, each running
    every sharded path on its rows of a 131,072 x 360 fleet (the uneven
    case 131,069 chips) against the single-device results; each rank
-   reports its launches per path.
+   reports its launches per path;
+8. the port's host tooling, which runs no kernel: build the C++ core from
+   native/ with g++ (tpu_pruner_torch.native.ensure_built: the library,
+   the daemon, the unit-test runner and the fuzz binary), run the unit
+   runner and 20,000 fuzz iterations, then the replay smoke (what `python
+   -m tpu_pruner_torch.testing.replay_smoke` runs: two daemon cycles
+   against the port's fakes, then `python -m tpu_pruner_torch.analyze
+   --replay` on each capsule); no module of jax or of tpu_pruner may be
+   loaded afterwards. Prints the build and smoke seconds beside the card's
+   name and power limit.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
 per path of phases 3 and 5-7; the line before it is {"end_to_end": {...}},
@@ -649,6 +658,35 @@ def phase_dryrun(by_path: dict) -> None:
         f"{time.perf_counter() - t0:.3f} s")
 
 
+def phase_host_tooling(card: str) -> None:
+    """Phase 8: the port's C++ core, unit runner, fuzz and replay smoke."""
+    from tpu_pruner_torch import native
+    from tpu_pruner_torch.testing import replay_smoke
+
+    t0 = time.perf_counter()
+    native.ensure_built()
+    build_s = time.perf_counter() - t0
+    units = subprocess.run([str(native.TESTS_PATH)], capture_output=True, text=True,
+                           timeout=300)
+    check(units.returncode == 0 and ", 0 failed" in units.stdout,
+          f"the C++ unit runner failed:\n{units.stdout[-3000:]}{units.stderr[-3000:]}")
+    fuzz = subprocess.run([str(native.BUILD_DIR / "tpupruner_fuzz"), "20000"],
+                          capture_output=True, text=True, timeout=300)
+    check(fuzz.returncode == 0 and "fuzz ok: 20000 iterations" in fuzz.stderr,
+          f"the fuzz smoke failed:\n{fuzz.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    rc = replay_smoke.main()
+    smoke_s = time.perf_counter() - t0
+    check(rc == 0, f"the replay smoke exited {rc}")
+    loaded = sorted(name for name in sys.modules
+                    if name.startswith("jax") or name.split(".")[0] == "tpu_pruner")
+    check(not loaded, f"modules of jax or tpu_pruner were loaded: {loaded}")
+    log(f"phase 8: g++ build of native/ (library, daemon, unit runner, fuzz) "
+        f"{build_s:.3f} s; {units.stdout.strip().splitlines()[-1]}; "
+        f"{fuzz.stderr.strip().splitlines()[-1]}; replay smoke {smoke_s:.3f} s; "
+        f"no jax or tpu_pruner module loaded; {card}")
+
+
 def ptxas_report(proc: subprocess.Popen) -> None:
     """Registers, shared memory and spills of each kernel, from nvcc -Xptxas -v."""
     out = proc.communicate()[0]
@@ -685,7 +723,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
 
     err = phase_adversarial(dev)
     err["chip_pass_q"] = max(err["chip_pass_q"], phase_int8_edges(dev))
@@ -696,6 +735,7 @@ def main() -> int:
     stream, ring_err = phase_streaming(dev, by_path)
     phase_sharded_one_rank(dev, by_path, inputs, expected, q, stream)
     phase_dryrun(by_path)
+    phase_host_tooling(card)
     for row in rows:
         name = row["name"]
         row["max_abs_err"] = max(row["max_abs_err"], ring_err if name == "chip_pass_q" else 0)

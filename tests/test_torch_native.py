@@ -4,7 +4,8 @@ report modes that run it: analyze --replay/--what-if, --gym and
 
 A module fixture builds the core through tpu_pruner_torch.native.build()
 into build/torch_native/, then records capsule corpora with that build's
-daemon (tpu_pruner.testing.trace_gen drives it over the hermetic fakes).
+daemon (the port's own tpu_pruner_torch.testing.trace_gen drives it over
+the port's hermetic fakes).
 Both CLIs then run in this process on the same capsules and call the same
 library: the reference's bindings are pointed at the port's loaded
 library for the duration of the module. Exit codes, stdout bytes and
@@ -20,8 +21,8 @@ import pytest
 
 import tpu_pruner.native
 from test_torch_reports import DebugServer, assert_cli_parity
-from tpu_pruner.testing import trace_gen
 from tpu_pruner_torch import native
+from tpu_pruner_torch.testing import trace_gen
 
 STAMPS = ("--capacity", "on", "--trace", "on", "--signal-guard", "on")
 
@@ -33,7 +34,6 @@ def corpora(tmp_path_factory):
     lib_path = native.build()
     root = tmp_path_factory.mktemp("corpora")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tpu_pruner.native, "DAEMON_PATH", native.DAEMON_PATH)
         mp.setattr(tpu_pruner.native, "_lib", native.load())
         out = {"lib_path": lib_path}
         for scenario, cycles, kwargs in (("defrag", 12, {"pods_per_workload": 2}),
@@ -108,10 +108,10 @@ def test_concurrent_builds_run_once(scratch_build, monkeypatch):
     runs = []
     compile_and_link = native._compile_and_link
 
-    def slow_build():
+    def slow_build(*args):
         runs.append(threading.get_ident())
         time.sleep(0.5)
-        compile_and_link()
+        compile_and_link(*args)
 
     monkeypatch.setattr(native, "_compile_and_link", slow_build)
     errors = []
