@@ -15,7 +15,12 @@ Phases, each of which exits non-zero on failure:
    {1, 12, 31, 360, 361, 10080}, C in {1, 17, 1003}, contiguous tensors and
    views whose data pointers are off a 16-byte boundary (x[1:] of a
    [C+1, T] tensor, and arbitrary byte offsets), rows of all -1, -128 and
-   127, and one full-width 131,072 x 360 view;
+   127, and one full-width 131,072 x 360 view. Then the engine on the inputs
+   the reference takes and the kernel wrappers refuse (input_cases: slice
+   ids outside [0, S), bf16, f16 and f64 samples, an integer mask, f64
+   ages, strided views) through evaluate_fleet(_cuda) and
+   evaluate_fleet_q(_cuda): the CPU's verdicts, each kernel equal to its
+   plain version, and both kernels launch after the bad-id cases;
 3. drive the main path at full width -- 131,072 chips x 360 samples in
    8,192 slices -- through evaluate_fleet, evaluate_fleet_c,
    quantize_fleet_inputs + evaluate_fleet_qc, the uniform path
@@ -31,16 +36,21 @@ Phases, each of which exits non-zero on failure:
    (back to back) and cold (a 256 MB scratch buffer zeroed before each
    launch, outside the events, so the 50 MB L2 holds none of the inputs);
    the int8 kernel also at T = 12, the streaming window's shape; and, end
-   to end, evaluate_fleet_qc, evaluate_fleet_qu and one streaming cycle
-   (update_window + evaluate_window_qc or _qu): device time, warm and
-   cold, from replays of a CUDA graph of one call, and eager host wall time
-   per call;
+   to end, evaluate_fleet_qc, evaluate_fleet_qu and one streaming cycle in
+   each form (update_window_ in place, or update_window with fresh rings,
+   + evaluate_window_qc or _qu): device time, warm and cold, from replays of
+   a CUDA graph of one call, and eager host wall time per call. All of it
+   twice: on the main path's fleet, and at bench.py's XL point, 1,048,576
+   chips x 360 samples in 65,536 slices, built on the card with a seeded
+   torch.Generator, whose qc, qu and f32 verdicts and both kernels are
+   checked first;
 5. the streaming window at full width, K = 12 chunks of 6 new samples a
    cycle, 14 cycles (the ring wraps): each cycle's evaluate_window_qc and
    _qu must equal evaluate_fleet_qc over the last <= 12 chunks and the
    verdicts the chunks were built for; some slices turn idle exactly when
    their busy chunk is evicted; each window evaluation launches the int8
-   kernel once;
+   kernel once; the rings of update_window_ (the counted cycle, as
+   analyze --stream runs it) equal those of update_window every cycle;
 6. every sharded evaluator and the stream step in a one-rank NCCL group
    (file:// rendezvous), at full width, against the single-device results;
 7. dryrun_multichip(4) with gloo: four ranks on the one card, each running
@@ -58,8 +68,9 @@ Phases, each of which exits non-zero on failure:
    name and power limit.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-per path of phases 3 and 5-7; the line before it is {"end_to_end": {...}},
-phase 4's end-to-end times; the last line is
+per path of phases 3 and 5-7 and its XL times under "xl"; the line before
+it is {"end_to_end": {...}}, phase 4's end-to-end times at both sizes; the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -82,18 +93,21 @@ import torch.distributed as dist
 from tpu_pruner_torch import analyze, entry
 from tpu_pruner_torch.policy import (
     LAUNCHES, PolicyParams, _build, assert_uniform_slices, chip_pass, chip_pass_plain,
-    chip_pass_q, chip_pass_q_plain, evaluate_fleet, evaluate_fleet_c, evaluate_fleet_q,
-    evaluate_fleet_qc, evaluate_fleet_qu, evaluate_fleet_sharded, evaluate_fleet_sharded_q,
-    evaluate_fleet_sharded_qc, evaluate_fleet_sharded_qu, evaluate_window_qc,
-    evaluate_window_qu, init_window, make_example_fleet, make_sharded_evaluator,
-    make_sharded_evaluator_q, make_sharded_evaluator_qc, make_sharded_evaluator_qu,
-    quantize_fleet_inputs, quantize_params, quantize_samples, quantize_samples_device,
-    reset_launches, shard_bounds, slice_bounds, update_window)
+    chip_pass_q, chip_pass_q_plain, evaluate_fleet, evaluate_fleet_c, evaluate_fleet_cuda,
+    evaluate_fleet_cuda_q, evaluate_fleet_q, evaluate_fleet_qc, evaluate_fleet_qu,
+    evaluate_fleet_sharded, evaluate_fleet_sharded_q, evaluate_fleet_sharded_qc,
+    evaluate_fleet_sharded_qu, evaluate_window_qc, evaluate_window_qu, init_window,
+    make_example_fleet, make_sharded_evaluator, make_sharded_evaluator_q,
+    make_sharded_evaluator_qc, make_sharded_evaluator_qu, quantize_fleet_inputs,
+    params_array, quantize_params, quantize_samples, quantize_samples_device, reset_launches,
+    shard_bounds, slice_bounds, update_window, update_window_)
+from tpu_pruner_torch.policy.engine import normalize_inputs, normalize_inputs_q
 from tpu_pruner_torch.policy.kernels import _plan_q, _sm_count
 from tpu_pruner_torch.policy.sharded import run_local, run_stream_local
 
 CHIPS, SAMPLES, SLICES = 131072, 360, 8192
 CPS = CHIPS // SLICES  # the example fleet is uniform: 16 chips a slice
+XL_CHIPS, XL_SLICES = 1048576, 65536  # bench.py's XL point, 16 chips a slice too
 WINDOW_CHUNKS, CHUNK_SAMPLES, STREAM_CYCLES = 12, 6, 14  # the daemon's window shape
 DRYRUN_RANKS = 4
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit.
@@ -226,6 +240,112 @@ def phase_int8_edges(dev) -> int:
     torch.cuda.synchronize()
     log(f"phase 2: chip_pass_q equals its plain version on {cases + 1} edge layouts "
         f"x {len(INT8_PARAMS)} parameter sets")
+    return err
+
+
+INPUT_SLICES = 64
+
+
+def _strided(x: torch.Tensor) -> torch.Tensor:
+    """x as every other column of a tensor twice as wide, on x's device."""
+    wide = torch.zeros((x.shape[0], 2 * x.shape[1]), dtype=x.dtype, device=x.device)
+    wide[:, ::2] = x
+    return wide[:, ::2]
+
+
+def input_cases(seed: int, C: int = 1003, T: int = 31) -> dict:
+    """name -> fn(device) giving evaluate_fleet's inputs (tc, hbm, valid, age,
+    slice_id, params) that the engine takes and the kernel wrappers do not:
+    slice ids outside [0, S) (int32 and int64: 7-like, -1, S and -S), bf16,
+    f16 and f64 samples, an integer mask, f64 ages, and strided views. Views
+    are made on the device itself, since a copy across devices is contiguous."""
+    rng = np.random.default_rng(seed)
+    tc, hbm, valid, age = adversarial_fleet(rng, C, T)
+    sid = np.sort(rng.integers(0, INPUT_SLICES, size=C))
+    # the even slices quiet, some of their chips salted with -0.0, an f32
+    # subnormal, an f16 subnormal and NaN, so that slices are idle or vetoed
+    quiet = sid % 2 == 0
+    tc[quiet], hbm[quiet], valid[quiet, 0], age[quiet] = 0.0, 0.0, True, 7200.0
+    salt = np.flatnonzero(quiet & (rng.uniform(size=C) < 0.1))
+    tc[salt, rng.integers(0, T, size=salt.size)] = rng.choice(
+        np.array([-0.0, 1e-40, 6e-8, np.nan], np.float32), size=salt.size)
+    # a third of the chips moved outside [0, S); the first four 7S, -1, S, -S
+    bad = np.where(rng.uniform(size=C) < 1 / 3,
+                   rng.choice([-1, 1], size=C) * rng.integers(INPUT_SLICES, 2 * INPUT_SLICES,
+                                                               size=C), sid)
+    bad[:4] = (7 * INPUT_SLICES, -1, INPUT_SLICES, -INPUT_SLICES)
+    tc, hbm, valid, age = (torch.from_numpy(x) for x in (tc, hbm, valid, age))
+    ids = torch.from_numpy(sid.astype(np.int32))
+    params = torch.tensor([2100.0, 0.05])
+
+    def fleet(dev, tc=tc, hbm=hbm, valid=valid, age=age, ids=ids, view=None):
+        arrays = [x.to(dev) for x in (tc, hbm, valid)]
+        if view is not None:
+            arrays = [view(x) for x in arrays]
+        return (*arrays, age.to(dev), ids.to(dev), params.to(dev))
+
+    return {
+        "slice ids outside [0, S), int32": lambda dev: fleet(
+            dev, ids=torch.from_numpy(bad.astype(np.int32))),
+        "slice ids outside [0, S), int64": lambda dev: fleet(dev, ids=torch.from_numpy(bad)),
+        "bf16 samples": lambda dev: fleet(dev, tc=tc.bfloat16(), hbm=hbm.bfloat16()),
+        "f16 samples": lambda dev: fleet(dev, tc=tc.half(), hbm=hbm.half()),
+        "f64 samples and ages, uint8 mask": lambda dev: fleet(
+            dev, tc=tc.double(), hbm=hbm.double(), valid=valid.to(torch.uint8),
+            age=age.double()),
+        "strided views": lambda dev: fleet(dev, view=_strided),
+        "column-major views": lambda dev: fleet(dev, view=lambda x: x.t().contiguous().t()),
+    }
+
+
+def engine_input_check(dev, name: str, make) -> int:
+    """One input case through the f32 and int8 engine paths on the card: one
+    launch of each kernel, the same verdicts and candidates as the CPU's
+    plain versions on the same inputs, and each kernel equal to its plain
+    version on the card. Returns the largest mask difference (0)."""
+    gpu, cpu = make(dev), make("cpu")
+    err = 0
+    for kind, evaluate, evaluate_cuda in (("chip_pass", evaluate_fleet, evaluate_fleet_cuda),
+                                          ("chip_pass_q", evaluate_fleet_q,
+                                           evaluate_fleet_cuda_q)):
+        if kind == "chip_pass":
+            g_in, c_in = gpu, cpu
+            g_pass = normalize_inputs(*gpu[:4], gpu[5])
+            kernel, plain = chip_pass(*g_pass), chip_pass_plain(*g_pass)
+        else:
+            g_in, c_in = quantize_fleet_inputs(gpu), quantize_fleet_inputs(cpu)
+            g_pass = normalize_inputs_q(*g_in[:3], g_in[4])
+            kernel, plain = chip_pass_q(*g_pass), chip_pass_q_plain(*g_pass)
+        before = LAUNCHES[kind]
+        v, c = evaluate(*g_in, num_slices=INPUT_SLICES)
+        vc, cc = evaluate_cuda(*g_in, num_slices=INPUT_SLICES)
+        torch.cuda.synchronize()
+        check(LAUNCHES[kind] == before + 2, f"{name}: {kind} launched "
+              f"{LAUNCHES[kind] - before} times for two evaluations")
+        want_v, want_c = evaluate(*c_in, num_slices=INPUT_SLICES)
+        check(torch.equal(v.cpu(), want_v) and torch.equal(c.cpu(), want_c)
+              and torch.equal(vc, v) and torch.equal(cc, c),
+              f"{name}: {kind} path on the card differs from the CPU's plain version")
+        check(torch.equal(kernel, plain) and torch.equal(kernel, c),
+              f"{name}: {kind} differs from its plain version")
+        check(0 < int(want_v.sum()) < INPUT_SLICES, f"{name}: the {kind} verdicts are vacuous")
+        err = max(err, mask_err(kernel, plain))
+    return err
+
+
+def phase_engine_inputs(dev) -> int:
+    """Every input case of input_cases on the card; then one more launch of
+    each kernel, which proves the CUDA context survived the bad ids."""
+    cases = input_cases(99)
+    err = max(engine_input_check(dev, name, make) for name, make in cases.items())
+    probe = cases["bf16 samples"](dev)
+    chip_pass(*normalize_inputs(*probe[:4], probe[5]))
+    q = quantize_fleet_inputs(probe)
+    chip_pass_q(*normalize_inputs_q(*q[:3], q[4]))
+    torch.cuda.synchronize()
+    log(f"phase 2: the engine on {len(cases)} input cases the wrappers refuse "
+        f"({', '.join(cases)}) equals the CPU's plain versions, each kernel one launch "
+        "a path; both kernels launch after the bad-id cases")
     return err
 
 
@@ -438,12 +558,16 @@ def end_to_end_ms(name: str, fn, flush: torch.Tensor) -> dict:
     return {"ms": warm, "ms_cold": cold, "wall_ms": wall}
 
 
-def phase_timing(inputs, q, err):
+def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
+    """Phase 4 on one fleet: each kernel warm, cold and plain against its
+    bound, the int8 kernel at T = 12, and the end-to-end paths. Returns
+    ({kernel: row}, {path: times})."""
     tc, hbm, valid, age, slice_id, parr = inputs
     tc_q, hbm_q = q[0], q[1]
     parr_q = q[4]
     C, T = tc.shape
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=tc.device)
+    cps = C // num_slices
+    at = f"{C}x{T}"
     work = {
         "chip_pass": (lambda: chip_pass(tc, hbm, valid, age, parr),
                       lambda: chip_pass_plain(tc, hbm, valid, age, parr),
@@ -468,7 +592,7 @@ def phase_timing(inputs, q, err):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "bytes": nbytes,
         }
-        log(f"phase 4: {name}: kernel {ms:.4f} ms warm, {ms_cold:.4f} ms cold, plain "
+        log(f"phase 4: {at} {name}: kernel {ms:.4f} ms warm, {ms_cold:.4f} ms cold, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes; "
             f"{bound_ms / ms:.3f} of the bound warm, {bound_ms / ms_cold:.3f} cold)")
 
@@ -476,31 +600,90 @@ def phase_timing(inputs, q, err):
     tc_new, hbm_new = tc_q[:, :CHUNK_SAMPLES].contiguous(), hbm_q[:, :CHUNK_SAMPLES].contiguous()
     state = init_window(C, WINDOW_CHUNKS, device=tc.device)
     for _ in range(WINDOW_CHUNKS):
-        state = update_window(state, tc_new, hbm_new)
+        state = update_window_(state, tc_new, hbm_new)
     ring_bytes = sum(x.nbytes for x in (state[0], state[1], age, parr_q)) + C
     ring_ms = time_ms(lambda: chip_pass_q(state[0], state[1], age, parr_q), 200)
     ring_bound = ring_bytes / HBM_BYTES_PER_S * 1e3
     plan = _plan_q(C, WINDOW_CHUNKS, _sm_count(tc.device))
     rows["chip_pass_q"]["window"] = {"T": WINDOW_CHUNKS, "ms": ring_ms, "bound_ms": ring_bound,
                                      "bytes": ring_bytes, "plan": plan._asdict()}
-    log(f"phase 4: chip_pass_q at T={WINDOW_CHUNKS}: kernel {ring_ms:.4f} ms warm, bound "
+    log(f"phase 4: {at} chip_pass_q at T={WINDOW_CHUNKS}: kernel {ring_ms:.4f} ms warm, bound "
         f"{ring_bound:.4f} ms ({ring_bytes} bytes; {ring_bound / ring_ms:.3f} of the bound; "
         f"plan {plan})")
 
-    bounds = slice_bounds(slice_id, SLICES, device=tc.device)
+    bounds = slice_bounds(slice_id, num_slices, device=tc.device)
     e2e = {
         "evaluate_fleet_qc": lambda: evaluate_fleet_qc(tc_q, hbm_q, age, bounds, parr_q),
-        "evaluate_fleet_qu": lambda: evaluate_fleet_qu(tc_q, hbm_q, age, parr_q, CPS),
-        # one cycle's work; the cursor does not advance between timed calls
-        "streaming cycle, update_window + evaluate_window_qc": lambda: evaluate_window_qc(
-            update_window(state, tc_new, hbm_new), age, bounds, parr_q),
-        "streaming cycle, update_window + evaluate_window_qu": lambda: evaluate_window_qu(
-            update_window(state, tc_new, hbm_new), age, parr_q, CPS),
+        "evaluate_fleet_qu": lambda: evaluate_fleet_qu(tc_q, hbm_q, age, parr_q, cps),
     }
-    end_to_end = {name: end_to_end_ms(name, fn, flush) for name, fn in e2e.items()}
+    # one cycle's work; the cursor does not advance between timed calls. The
+    # in-place form writes the timed state's rings, the functional form
+    # copies them first (2*C*K bytes).
+    for update in (update_window_, update_window):
+        e2e[f"streaming cycle, {update.__name__} + evaluate_window_qc"] = (
+            lambda update=update: evaluate_window_qc(update(state, tc_new, hbm_new), age,
+                                                     bounds, parr_q))
+        e2e[f"streaming cycle, {update.__name__} + evaluate_window_qu"] = (
+            lambda update=update: evaluate_window_qu(update(state, tc_new, hbm_new), age,
+                                                     parr_q, cps))
+    end_to_end = {name: end_to_end_ms(f"{at} {name}", fn, flush) for name, fn in e2e.items()}
     amax_ms = time_ms(lambda: torch.amax(tc, 1), 50)
-    log(f"context (not a port of either kernel): torch.amax(tc, 1) {amax_ms:.4f} ms")
-    return list(rows.values()), end_to_end
+    log(f"context (not a port of either kernel): {at} torch.amax(tc, 1) {amax_ms:.4f} ms")
+    return rows, end_to_end
+
+
+def xl_fleet(dev):
+    """bench.py's XL fleet: make_example_fleet's layout (uniform slices of 16
+    chips, the first half idle, busy tc in [0.2, 1), hbm in [0.1, 0.9), every
+    sample valid, pods 7200 s old, default params) at 1,048,576 chips x 360
+    samples in 65,536 slices, drawn on the card with a seeded
+    torch.Generator. Returns (evaluate_fleet's inputs, expected verdicts)."""
+    C, T, S = XL_CHIPS, SAMPLES, XL_SLICES
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tc = torch.rand((C, T), generator=gen, device=dev).mul_(0.8).add_(0.2)
+    hbm = torch.rand((C, T), generator=gen, device=dev).mul_(0.8).add_(0.1)
+    tc[:C // 2] = 0.0
+    hbm[:C // 2] = 0.0
+    valid = torch.ones((C, T), dtype=torch.bool, device=dev)
+    age = torch.full((C,), 7200.0, device=dev)
+    slice_id = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(C // S)
+    return (tc, hbm, valid, age, slice_id, params_array(PolicyParams(), device=dev)), \
+        np.arange(S) < S // 2
+
+
+def phase_xl(dev, flush: torch.Tensor):
+    """Phase 4 at bench.py's 1,048,576-chip point: the fleet built on the
+    card, the main paths' verdicts against the expected ones, each kernel
+    against its plain version, then phase_timing. Timing launches are not
+    counted as the main path's."""
+    t0 = time.perf_counter()
+    inputs, expected = xl_fleet(dev)
+    q = quantize_fleet_inputs(inputs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tc, hbm, valid, age, slice_id, parr = inputs
+    check(assert_uniform_slices(slice_id, XL_CHIPS // XL_SLICES) == XL_SLICES, "XL layout")
+    bounds = slice_bounds(slice_id, XL_SLICES, device=dev)
+    verdicts = {
+        "evaluate_fleet_c": evaluate_fleet_c(tc, hbm, valid, age, bounds, parr)[0],
+        "evaluate_fleet_qc": evaluate_fleet_qc(q[0], q[1], q[2], bounds, q[4])[0],
+        "evaluate_fleet_qu": evaluate_fleet_qu(q[0], q[1], q[2], q[4],
+                                               XL_CHIPS // XL_SLICES)[0],
+    }
+    for path, v in verdicts.items():
+        check(np.array_equal(v.cpu().numpy(), expected), f"XL {path} verdicts")
+    err = {
+        "chip_pass": mask_err(chip_pass(tc, hbm, valid, age, parr),
+                              chip_pass_plain(tc, hbm, valid, age, parr)),
+        "chip_pass_q": mask_err(chip_pass_q(q[0], q[1], q[2], q[4]),
+                                chip_pass_q_plain(q[0], q[1], q[2], q[4])),
+    }
+    check(not any(err.values()), f"XL kernel mismatch {err}")
+    log(f"phase 4: {XL_CHIPS}x{SAMPLES} in {XL_SLICES} slices built on the card in "
+        f"{setup_s:.3f} s; {', '.join(verdicts)} verdicts as expected; both kernels equal "
+        f"their plain versions; {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
+    return phase_timing(inputs, q, err, XL_SLICES, flush)
 
 
 def stream_chunks(dev):
@@ -546,16 +729,22 @@ def phase_streaming(dev, by_path: dict):
     bounds = slice_bounds(np.repeat(np.arange(SLICES, dtype=np.int32), CPS), SLICES,
                           device=dev)
     state = init_window(CHIPS, WINDOW_CHUNKS, device=dev)
-    totals = {"update_window + evaluate_window_qc": 0, "evaluate_window_qu": 0}
+    fresh = init_window(CHIPS, WINDOW_CHUNKS, device=dev)
+    totals = {"update_window_ + evaluate_window_qc": 0, "evaluate_window_qu": 0}
     verdicts_qu = []
     for cycle, (tc_new, hbm_new) in enumerate(chunks):
         def qc_cycle():
             nonlocal state
-            state = update_window(state, tc_new, hbm_new)
+            state = update_window_(state, tc_new, hbm_new)
             return evaluate_window_qc(state, age, bounds, pq)
 
-        v, c = counted(by_path, "update_window + evaluate_window_qc", qc_cycle)
-        expect_launches(by_path, "update_window + evaluate_window_qc", {"chip_pass_q": 1})
+        v, c = counted(by_path, "update_window_ + evaluate_window_qc", qc_cycle)
+        expect_launches(by_path, "update_window_ + evaluate_window_qc", {"chip_pass_q": 1})
+        # the functional form follows on its own rings, never the ones it was given
+        prev, fresh = fresh, update_window(fresh, tc_new, hbm_new)
+        check(fresh[0].data_ptr() != prev[0].data_ptr()
+              and all(torch.equal(a, b) for a, b in zip(fresh, state)),
+              f"cycle {cycle}: update_window differs from update_window_")
         vu, cu = counted(by_path, "evaluate_window_qu",
                          lambda: evaluate_window_qu(state, age, pq, CPS))
         expect_launches(by_path, "evaluate_window_qu", {"chip_pass_q": 1})
@@ -728,22 +917,32 @@ def main() -> int:
 
     err = phase_adversarial(dev)
     err["chip_pass_q"] = max(err["chip_pass_q"], phase_int8_edges(dev))
+    input_err = phase_engine_inputs(dev)
+    err = {name: max(e, input_err) for name, e in err.items()}
     by_path = {}
     inputs, expected, q, main_err = phase_main_path(dev, by_path)
     err = {name: max(err[name], main_err[name]) for name in err}
-    rows, end_to_end = phase_timing(inputs, q, err)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows, end_to_end = phase_timing(inputs, q, err, SLICES, flush)
+    xl_rows, xl_end_to_end = phase_xl(dev, flush)
+    for name, row in rows.items():
+        row["max_abs_err"] = max(row["max_abs_err"], xl_rows[name]["max_abs_err"])
+        row["xl"] = {k: v for k, v in xl_rows[name].items()
+                     if k not in ("name", "route", "source", "replaces", "library_ms")}
+    del xl_rows
+    torch.cuda.empty_cache()
     stream, ring_err = phase_streaming(dev, by_path)
     phase_sharded_one_rank(dev, by_path, inputs, expected, q, stream)
     phase_dryrun(by_path)
     phase_host_tooling(card)
-    for row in rows:
-        name = row["name"]
+    for name, row in rows.items():
         row["max_abs_err"] = max(row["max_abs_err"], ring_err if name == "chip_pass_q" else 0)
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items() if c[name]}
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] > 0, f"{name} was never launched on the main path")
-    print(json.dumps({"end_to_end": end_to_end}))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"end_to_end": {f"{CHIPS} chips": end_to_end,
+                                     f"{XL_CHIPS} chips": xl_end_to_end}}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

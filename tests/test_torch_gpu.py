@@ -10,12 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (INT8_LAYOUTS, INT8_PARAMS, adversarial_fleet, int8_edge_fleet,
-                        int8_on)
+from chip_smoke import (INT8_LAYOUTS, INT8_PARAMS, adversarial_fleet, engine_input_check,
+                        input_cases, int8_edge_fleet, int8_on)
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
 
 PARAMS = [(2100.0, 0.05), (2100.0, float("inf")), (0.0, 1e-40), (2e-40, 0.5)]
+INPUT_CASES = input_cases(5)
 
 
 @pytest.fixture
@@ -222,3 +223,39 @@ def test_sharded_one_rank_nccl_matches_single_device(cuda, tmp_path):
         assert torch.equal(cycles[-1][0], ref_v)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(INPUT_CASES))
+def test_engine_inputs_on_card_match_cpu(cuda, case):
+    """Slice ids outside [0, S), bf16, f16 and f64 samples, an integer mask,
+    f64 ages and strided views through the f32 and int8 paths on the card:
+    the CPU's verdicts, each kernel equal to its plain version, and a launch
+    after the case succeeds (a bad id leaves the CUDA context usable)."""
+    assert engine_input_check(cuda, case, INPUT_CASES[case]) == 0
+    tc, hbm, valid, age = adversarial_on(cuda, 12)
+    parr = torch.tensor(PARAMS[0], device=cuda)
+    assert torch.equal(tp.chip_pass(tc, hbm, valid, age, parr),
+                       tp.chip_pass_plain(tc, hbm, valid, age, parr))
+
+
+@pytest.mark.gpu
+def test_window_cursor_and_branches_on_card_match_cpu(cuda):
+    """update_window and update_window_ with every cursor in -2K..2K write
+    the same column and return the same next cursor on the card as on the
+    CPU; update_window leaves a branched state as it was."""
+    K = 3
+    new = torch.arange(8, dtype=torch.int8).view(4, 2)
+    for cursor in range(-2 * K, 2 * K + 1):
+        for form in (tp.update_window, tp.update_window_):
+            out = []
+            for dev in (cuda, torch.device("cpu")):
+                ring, ring2, _ = tp.init_window(4, K, device=dev)
+                c = torch.tensor(cursor, dtype=torch.int32, device=dev)
+                out.append(form((ring, ring2, c), new.to(dev), new.to(dev)))
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(*out)), (cursor, form)
+    s0 = tp.init_window(4, K, device=cuda)
+    s1 = tp.update_window(s0, torch.zeros_like(new, device=cuda),
+                          torch.zeros_like(new, device=cuda))
+    tp.update_window(s0, new.to(cuda), new.to(cuda))
+    assert int(s0[0].max()) == -1 and int(s1[0].max()) == 0

@@ -160,15 +160,37 @@ def test_window_evicts_old_activity():
 
 
 def test_window_updates_rings_in_place():
-    """The ring write reuses the rings' storage: no ring is allocated per cycle."""
+    """update_window_ reuses the rings' storage: no ring is allocated per
+    cycle, and it writes what update_window writes."""
     C, K = 8, 3
+    rng = np.random.default_rng(8)
     state = tp.init_window(C, K, device=CPU)
+    fresh = tp.init_window(C, K, device=CPU)
     ptrs = (state[0].data_ptr(), state[1].data_ptr())
-    zeros = torch.zeros((C, 2), dtype=torch.int8)
     for cycle in range(K + 1):
-        state = tp.update_window(state, zeros, zeros)
+        tc_q, hbm_q = (t(x) for x in chunk(rng, C, 2))
+        state = tp.update_window_(state, tc_q, hbm_q)
+        fresh = tp.update_window(fresh, tc_q, hbm_q)
         assert (state[0].data_ptr(), state[1].data_ptr()) == ptrs
         assert int(state[2]) == (cycle + 1) % K
+        assert all(torch.equal(a, b) for a, b in zip(state, fresh))
+
+
+def test_update_window_leaves_its_input_untouched():
+    """update_window returns fresh rings: the state it was given keeps its
+    bytes and its cursor, so it can be branched from again."""
+    C, K = 8, 3
+    rng = np.random.default_rng(9)
+    state = tp.init_window(C, K, device=CPU)
+    for _ in range(2):
+        state = tp.update_window(state, *(t(x) for x in chunk(rng, C, 2)))
+    before = tuple(x.clone() for x in state)
+    after = tp.update_window(state, *(t(x) for x in chunk(rng, C, 2)))
+    assert all(torch.equal(a, b) for a, b in zip(state, before))
+    assert after[0].data_ptr() != state[0].data_ptr()
+    assert after[1].data_ptr() != state[1].data_ptr()
+    assert int(after[2]) == (int(state[2]) + 1) % K
+    assert not torch.equal(after[0], state[0])
 
 
 def test_window_uniform_matches_reference():

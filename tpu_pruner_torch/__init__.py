@@ -13,9 +13,13 @@ nothing of the JAX package, which stays the reference it is tested against.
   ``--slow``);
 - ``tpu_pruner_torch.dump`` — exports a dump from Prometheus,
   ``python -m tpu_pruner_torch.dump --prometheus-url URL``;
-- ``tpu_pruner_torch.native`` — builds the daemon's C++ core from
-  ``native/`` at first use and binds what the replay, gym and capacity
-  reports call.
+- ``tpu_pruner_torch.native`` — ctypes bindings over the daemon's C++
+  core, which it builds from ``native/`` with g++ at first use: every C API
+  binding of ``tpu_pruner.native`` and ``InformerSession``, and
+  ``ensure_built()`` for the unit-test and fuzz runners;
+- ``tpu_pruner_torch.testing`` — the hermetic fixtures (fake Kubernetes API
+  server, fake Prometheus, proxy, OTLP collector) and the seven smokes
+  (``python -m tpu_pruner_torch.testing.replay_smoke`` and the rest).
 """
 
 __version__ = "0.1.0"

@@ -233,7 +233,7 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
 
     from tpu_pruner_torch.policy import (
         evaluate_window_qc, fleet_from_numpy, init_window, quantize_params,
-        quantize_samples_device, slice_bounds, update_window, window_from_numpy)
+        quantize_samples_device, slice_bounds, update_window_, window_from_numpy)
 
     tc, hbm, valid, age, slice_id = fleet
     parr = np.array([params.lookback_s, params.hbm_cutoff()], dtype=np.float32)
@@ -269,8 +269,9 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
     cursor_before = int(ring[2])
     tc_t, hbm_t, valid_t, age_t, _, parr_t = fleet_from_numpy(
         (tc, hbm, valid, age, slice_id, parr), args.device)
-    ring = update_window(ring, quantize_samples_device(tc_t, valid_t),
-                         quantize_samples_device(hbm_t, valid_t))
+    # this cycle owns the state alone: write the rings in place
+    ring = update_window_(ring, quantize_samples_device(tc_t, valid_t),
+                          quantize_samples_device(hbm_t, valid_t))
     chunk_times[cursor_before] = now
 
     parr_q = torch.from_numpy(quantize_params(parr_t)).to(parr_t.device)

@@ -23,14 +23,16 @@ ingest)                     gather)
 arbitrary order             ``evaluate_fleet_q`` /     ``evaluate_fleet_sharded_q`` /
                             ``evaluate_fleet``         ``evaluate_fleet_sharded``
                             (index_add_ scatter)       (index_add_ + all-reduce)
-streaming (daemon loop)     ``update_window`` +        ``make_sharded_stream_step``
+streaming (daemon loop)     ``update_window(_)`` +     ``make_sharded_stream_step``
                             ``evaluate_window_qu/qc``  (fused update + verdict per
                                                        rank, no collective)
 ==========================  =========================  ===========================
 
 int8 quantized storage (``quantize_fleet_inputs``) is the recommended form:
 the pass is bandwidth-bound, and it moves 2 bytes per chip-sample instead
-of 9.
+of 9. ``update_window`` returns fresh rings, as the reference does;
+``update_window_`` writes the caller's rings in place, for a loop that owns
+its state alone.
 """
 
 from tpu_pruner_torch.policy.cuda_engine import (
@@ -64,6 +66,7 @@ from tpu_pruner_torch.policy.engine import (
     slice_verdicts,
     slice_verdicts_contiguous,
     update_window,
+    update_window_,
     window_from_numpy,
 )
 from tpu_pruner_torch.policy.kernels import (
@@ -132,5 +135,6 @@ __all__ = [
     "slice_verdicts",
     "slice_verdicts_contiguous",
     "update_window",
+    "update_window_",
     "window_from_numpy",
 ]

@@ -15,6 +15,11 @@ they lie on the CPU. The slice reductions are plain PyTorch ops. Functions
 follow the device of the tensors they are given; functions that create
 tensors take ``device=`` (default ``"cuda"``) and raise when no card is
 present, unless the caller asked for ``"cpu"``.
+
+The evaluators take what the reference takes: samples of any float or
+integer dtype (widened or rounded to f32 first, as JAX does with x64 off),
+validity masks of any dtype (nonzero is valid), f64 or integer ages, and
+strided views (``normalize_inputs``). The kernel wrappers stay strict.
 """
 
 from __future__ import annotations
@@ -65,6 +70,29 @@ def _param_pair(lookback_s, hbm_cutoff, like: torch.Tensor) -> torch.Tensor:
                         dtype=torch.float32, device=like.device)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def normalize_inputs(tc_util, hbm_util, valid, pod_age_s, params_arr):
+    """The f32 chip pass's inputs in the dtypes and layout its kernel takes.
+
+    Samples, ages and params become contiguous f32: exact for bf16 and f16,
+    round-to-nearest for f64, so subnormals are judged after the cast, as in
+    the reference. A mask that is not bool reads nonzero as valid. Inputs
+    that already conform are returned as they are, with no device work.
+    """
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    return (_f32(tc_util), _f32(hbm_util), valid.contiguous(), _f32(pod_age_s),
+            _f32(params_arr))
+
+
+def normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q):
+    """normalize_inputs for the int8 pass: the samples stay int8."""
+    return tc_q.contiguous(), hbm_q.contiguous(), _f32(pod_age_s), _f32(params_arr_q)
+
+
 def evaluate_chips(tc_util, hbm_util, valid, pod_age_s, lookback_s, hbm_cutoff):
     """Per-chip idle-candidate mask (bool[C]).
 
@@ -72,8 +100,8 @@ def evaluate_chips(tc_util, hbm_util, valid, pod_age_s, lookback_s, hbm_cutoff):
     utilization over the window is zero, its peak HBM bandwidth stays below
     the cutoff, and its pod cleared the age gate.
     """
-    return chip_pass(tc_util, hbm_util, valid, pod_age_s,
-                     _param_pair(lookback_s, hbm_cutoff, tc_util))
+    return chip_pass(*normalize_inputs(tc_util, hbm_util, valid, pod_age_s,
+                                       _param_pair(lookback_s, hbm_cutoff, tc_util)))
 
 
 def slice_verdicts(candidate, slice_id, num_slices: int):
@@ -87,12 +115,20 @@ def slice_verdicts(candidate, slice_id, num_slices: int):
 
 
 def slice_counts(candidate, slice_id, num_slices: int):
-    """Per-slice (busy chips, chips) as int32[S] each, by index_add_ scatter."""
-    busy = torch.zeros(num_slices, dtype=torch.int32, device=candidate.device)
-    busy.index_add_(0, slice_id, (~candidate).to(torch.int32))
-    chips = torch.zeros(num_slices, dtype=torch.int32, device=candidate.device)
-    chips.index_add_(0, slice_id, torch.ones_like(slice_id, dtype=torch.int32))
-    return busy, chips
+    """Per-slice (busy chips, chips) as int32[S] each, by index_add_ scatter.
+
+    A chip whose id lies outside [0, S) counts in neither, as the
+    reference's segment_sum drops it: it is added into one extra segment
+    that is cut off, so no id is ever out of range for index_add_ (which
+    raises on the CPU and asserts on the card) and nothing syncs the host.
+    """
+    keep = (slice_id >= 0) & (slice_id < num_slices)
+    index = torch.where(keep, slice_id, num_slices)
+    busy = torch.zeros(num_slices + 1, dtype=torch.int32, device=candidate.device)
+    busy.index_add_(0, index, (~candidate).to(torch.int32))
+    chips = torch.zeros(num_slices + 1, dtype=torch.int32, device=candidate.device)
+    chips.index_add_(0, index, torch.ones_like(index, dtype=torch.int32))
+    return busy[:num_slices], chips[:num_slices]
 
 
 def evaluate_fleet(tc_util, hbm_util, valid, pod_age_s, slice_id, params_arr,
@@ -101,7 +137,8 @@ def evaluate_fleet(tc_util, hbm_util, valid, pod_age_s, slice_id, params_arr,
 
     params_arr: f32[2] = [lookback_s, hbm_cutoff] (params_array).
     """
-    candidate = chip_pass(tc_util, hbm_util, valid, pod_age_s, params_arr)
+    candidate = chip_pass(*normalize_inputs(tc_util, hbm_util, valid, pod_age_s,
+                                            params_arr))
     return slice_verdicts(candidate, slice_id, num_slices), candidate
 
 
@@ -140,6 +177,8 @@ def quantize_samples_device(util: torch.Tensor, valid: torch.Tensor) -> torch.Te
     util = torch.where(util < _FLT_MIN, torch.zeros_like(util), util)
     q = torch.ceil(util * UTIL_SCALE)
     q = torch.nan_to_num(q, nan=0.0).clamp(0, 127)
+    if valid.dtype != torch.bool:
+        valid = valid != 0
     return torch.where(valid, q, torch.full_like(q, INVALID_Q)).to(torch.int8)
 
 
@@ -156,8 +195,8 @@ def quantize_params(params_arr) -> np.ndarray:
 
 def evaluate_chips_q(tc_q, hbm_q, pod_age_s, lookback_s, hbm_cutoff_q):
     """evaluate_chips over int8 quantized samples (bool[C])."""
-    return chip_pass_q(tc_q, hbm_q, pod_age_s,
-                       _param_pair(lookback_s, hbm_cutoff_q, tc_q))
+    return chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s,
+                                           _param_pair(lookback_s, hbm_cutoff_q, tc_q)))
 
 
 def evaluate_fleet_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q, num_slices: int):
@@ -165,7 +204,7 @@ def evaluate_fleet_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q, num_slices:
 
     params_arr_q: f32[2] = [lookback_s, quantized cutoff] (quantize_params).
     """
-    candidate = chip_pass_q(tc_q, hbm_q, pod_age_s, params_arr_q)
+    candidate = chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q))
     return slice_verdicts(candidate, slice_id, num_slices), candidate
 
 
@@ -209,13 +248,14 @@ def slice_counts_contiguous(candidate, bounds):
 
 def evaluate_fleet_c(tc_util, hbm_util, valid, pod_age_s, bounds, params_arr):
     """evaluate_fleet for slice-contiguous fleets (bounds = slice_bounds)."""
-    candidate = chip_pass(tc_util, hbm_util, valid, pod_age_s, params_arr)
+    candidate = chip_pass(*normalize_inputs(tc_util, hbm_util, valid, pod_age_s,
+                                            params_arr))
     return slice_verdicts_contiguous(candidate, bounds), candidate
 
 
 def evaluate_fleet_qc(tc_q, hbm_q, pod_age_s, bounds, params_arr_q):
     """evaluate_fleet_q for slice-contiguous fleets (int8 storage + cumsum)."""
-    candidate = chip_pass_q(tc_q, hbm_q, pod_age_s, params_arr_q)
+    candidate = chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q))
     return slice_verdicts_contiguous(candidate, bounds), candidate
 
 
@@ -249,7 +289,7 @@ def evaluate_fleet_qu(tc_q, hbm_q, pod_age_s, params_arr_q, chips_per_slice: int
     the minor axis. The layout contract is not detectable in here: validate
     it at ingest with assert_uniform_slices.
     """
-    candidate = chip_pass_q(tc_q, hbm_q, pod_age_s, params_arr_q)
+    candidate = chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q))
     return candidate.view(-1, chips_per_slice).all(dim=1), candidate
 
 
@@ -280,15 +320,32 @@ def init_window(num_chips: int, num_chunks: int, device="cuda"):
 def update_window(state, tc_q_new, hbm_q_new):
     """Fold one cycle's new int8 samples ([C, T_new]) into the rings.
 
-    Overwrites the oldest chunk (sliding-window eviction). The rings are
-    updated in place, so no ring is allocated per cycle; the returned state
-    holds the same rings and the advanced cursor.
+    Overwrites the oldest chunk (sliding-window eviction). Returns fresh
+    rings and cursor and leaves ``state`` as it was, as the reference does,
+    so a state kept by the caller (a what-if, a retry) stays valid; the copy
+    is 2*C*K bytes. ``update_window_`` writes the rings in place instead.
     """
     tc_ring, hbm_ring, cursor = state
-    column = cursor.view(1).long()
+    return update_window_((tc_ring.clone(), hbm_ring.clone(), cursor), tc_q_new, hbm_q_new)
+
+
+def update_window_(state, tc_q_new, hbm_q_new):
+    """update_window that writes the column into ``state``'s own rings.
+
+    No ring is allocated per cycle; any other state built on these rings
+    sees the write. Returns the same rings and the advanced cursor.
+
+    The cursor follows the reference's dynamic_update_slice, on the device:
+    column clamp(c + K*(c < 0), 0, K-1), which is clamp(c, -K, K-1) mod K,
+    and next cursor (c + 1) mod K, both Python-style.
+    """
+    tc_ring, hbm_ring, cursor = state
+    num_chunks = tc_ring.shape[1]
+    cursor = torch.as_tensor(cursor, dtype=torch.int32, device=tc_ring.device)
+    column = cursor.view(1).long().clamp_(-num_chunks, num_chunks - 1).remainder_(num_chunks)
     tc_ring.index_copy_(1, column, tc_q_new.amax(dim=1, keepdim=True))
     hbm_ring.index_copy_(1, column, hbm_q_new.amax(dim=1, keepdim=True))
-    return tc_ring, hbm_ring, (cursor + 1) % tc_ring.shape[1]
+    return tc_ring, hbm_ring, (cursor + 1) % num_chunks
 
 
 def evaluate_window_qc(state, pod_age_s, bounds, params_arr_q):
@@ -317,7 +374,7 @@ def window_from_numpy(state, device="cuda"):
     """
     device = resolve_device(device)
     tc_ring, hbm_ring, cursor = state
-    # copies: update_window writes the rings in place, and on the CPU
+    # copies: update_window_ writes the rings in place, and on the CPU
     # from_numpy would share (possibly read-only) numpy memory
     rings = tuple(torch.from_numpy(np.array(x, dtype=np.int8, order="C")).to(device)
                   for x in (tc_ring, hbm_ring))
@@ -362,14 +419,16 @@ def make_example_fleet(
     num_slices: int = 16,
     idle_fraction: float = 0.5,
     seed: int = 0,
+    dtype=torch.float32,
     device="cuda",
 ):
     """Synthetic fleet: contiguous equal slices, a fraction fully idle.
 
     Draws the same numbers in the same order as the JAX package's
-    make_example_fleet, so both build bit-identical fleets. Returns
-    (inputs tuple for evaluate_fleet minus num_slices, on ``device``;
-    expected per-slice verdicts as a numpy array).
+    make_example_fleet, so both build bit-identical fleets; ``dtype`` is
+    the samples' (tc and hbm), cast from f32 with round-to-nearest-even as
+    the reference's is. Returns (inputs tuple for evaluate_fleet minus
+    num_slices, on ``device``; expected per-slice verdicts as a numpy array).
     """
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -391,4 +450,5 @@ def make_example_fleet(
 
     params = PolicyParams()
     parr = np.array([params.lookback_s, params.hbm_cutoff()], dtype=np.float32)
-    return fleet_from_numpy((tc, hbm, valid, age, slice_id, parr), device), idle_slices
+    tc, hbm, *rest = fleet_from_numpy((tc, hbm, valid, age, slice_id, parr), device)
+    return (tc.to(dtype), hbm.to(dtype), *rest), idle_slices

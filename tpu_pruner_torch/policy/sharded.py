@@ -42,8 +42,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .engine import (INVALID_Q, evaluate_fleet_qu, init_window, resolve_device,
-                     slice_counts, slice_counts_contiguous, update_window)
+from .engine import (INVALID_Q, evaluate_fleet_qu, init_window, normalize_inputs,
+                     normalize_inputs_q, resolve_device, slice_counts,
+                     slice_counts_contiguous, update_window)
 from .kernels import chip_pass, chip_pass_q
 
 
@@ -84,12 +85,11 @@ def _make_sharded_impl(num_slices: int, group, quantized: bool):
     _world(group)
 
     def local_eval(*args):
+        *chip_args, slice_id, params_arr = args
         if quantized:
-            tc_q, hbm_q, pod_age_s, slice_id, params_arr = args
-            candidate = chip_pass_q(tc_q, hbm_q, pod_age_s, params_arr)
+            candidate = chip_pass_q(*normalize_inputs_q(*chip_args, params_arr))
         else:
-            tc_util, hbm_util, valid, pod_age_s, slice_id, params_arr = args
-            candidate = chip_pass(tc_util, hbm_util, valid, pod_age_s, params_arr)
+            candidate = chip_pass(*normalize_inputs(*chip_args, params_arr))
         busy, chips = slice_counts(candidate, slice_id, num_slices)
         return _counts_verdicts(busy, chips, group), candidate
 
@@ -204,7 +204,7 @@ def make_sharded_evaluator_qc(num_slices: int, group=None):
     del num_slices  # the shape comes with local_bounds
 
     def local_eval(tc_q, hbm_q, pod_age_s, local_bounds, params_arr):
-        candidate = chip_pass_q(tc_q, hbm_q, pod_age_s, params_arr)
+        candidate = chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr))
         busy, chips = slice_counts_contiguous(candidate, local_bounds.reshape(-1))
         return _counts_verdicts(busy, chips, group), candidate
 
@@ -270,8 +270,10 @@ def make_sharded_stream_step(chips_per_slice: int, group=None):
 
     Returned step(state, tc_new, hbm_new, age, params_q) -> (state, verdicts),
     where state = (tc_ring, hbm_ring, cursor) holds the rank's rows of the
-    rings (updated in place) and the cursor, equal on every rank. The caller
-    cuts shards on slice boundaries: chips % (world * chips_per_slice) == 0.
+    rings and the cursor, equal on every rank. The step returns fresh rings
+    (update_window) and leaves the state it was given as it was, as the
+    reference's jitted step does. The caller cuts shards on slice
+    boundaries: chips % (world * chips_per_slice) == 0.
     """
     _world(group)
 
@@ -318,8 +320,8 @@ def run_stream_local(chips_per_slice: int, num_chunks: int, tc_chunks, hbm_chunk
                      pod_age_s, params_arr_q):
     """Drive make_sharded_stream_step from a fresh window over a sequence of
     global chunks ([C, T_new] each), each rank on its rows. Returns, per
-    cycle, this rank's (verdicts, tc_ring, hbm_ring, cursor), the rings
-    copied, since the step updates them in place."""
+    cycle, this rank's (verdicts, tc_ring, hbm_ring, cursor); each cycle's
+    rings are its own, since the step returns fresh ones."""
     age = local_rows(pod_age_s)
     step = make_sharded_stream_step(chips_per_slice)
     state = init_window(age.shape[0], num_chunks, device=age.device)
@@ -327,7 +329,7 @@ def run_stream_local(chips_per_slice: int, num_chunks: int, tc_chunks, hbm_chunk
     for tc_new, hbm_new in zip(tc_chunks, hbm_chunks):
         state, verdicts = step(state, local_rows(tc_new), local_rows(hbm_new), age,
                                params_arr_q)
-        cycles.append((verdicts, state[0].clone(), state[1].clone(), state[2]))
+        cycles.append((verdicts, *state))
     return cycles
 
 
