@@ -17,10 +17,14 @@ Phases, each of which exits non-zero on failure:
    [C+1, T] tensor, and arbitrary byte offsets), rows of all -1, -128 and
    127, and one full-width 131,072 x 360 view. Then the engine on the inputs
    the reference takes and the kernel wrappers refuse (input_cases: slice
-   ids outside [0, S), bf16, f16 and f64 samples, an integer mask, f64
-   ages, strided views) through evaluate_fleet(_cuda) and
-   evaluate_fleet_q(_cuda): the CPU's verdicts, each kernel equal to its
-   plain version, and both kernels launch after the bad-id cases;
+   ids outside [0, S) as int32, int64, int8 and uint8, bf16, f16 and f64
+   samples, an integer mask, f64 ages, strided views) through
+   evaluate_fleet(_cuda) and evaluate_fleet_q(_cuda); int16, uint8 and f32
+   samples on the int8 paths (q_input_cases) through evaluate_fleet_q, _qc,
+   _qu and evaluate_fleet_cuda_q, _qc; and bounds outside [0, C] through
+   evaluate_fleet_c, _qc and evaluate_fleet_cuda_qc: the CPU's verdicts,
+   each kernel equal to its plain version, and both kernels launch, and
+   equal their plain versions, after the bad-bounds case;
 3. drive the main path at full width -- 131,072 chips x 360 samples in
    8,192 slices -- through evaluate_fleet, evaluate_fleet_c,
    quantize_fleet_inputs + evaluate_fleet_qc, the uniform path
@@ -35,11 +39,13 @@ Phases, each of which exits non-zero on failure:
    its plain version and its bound at the card's published rates: warm
    (back to back) and cold (a 256 MB scratch buffer zeroed before each
    launch, outside the events, so the 50 MB L2 holds none of the inputs);
-   the int8 kernel also at T = 12, the streaming window's shape; and, end
-   to end, evaluate_fleet_qc, evaluate_fleet_qu and one streaming cycle in
-   each form (update_window_ in place, or update_window with fresh rings,
-   + evaluate_window_qc or _qu): device time, warm and cold, from replays of
-   a CUDA graph of one call, and eager host wall time per call. All of it
+   the int8 kernel also at T = 12, the streaming window's shape, warm, cold
+   and plain; and, end to end, evaluate_fleet_qc, evaluate_fleet_qu and one
+   streaming cycle in each form (update_window_ in place, or update_window
+   with fresh rings, + evaluate_window_qc or _qu): device time, warm and
+   cold, from replays of a CUDA graph of one call, eager host wall time per
+   call, and, for qc and qu, the device operations one eager call puts on
+   the card, from a torch.profiler trace (launch_counts). All of it
    twice: on the main path's fleet, and at bench.py's XL point, 1,048,576
    chips x 360 samples in 65,536 slices, built on the card with a seeded
    torch.Generator, whose qc, qu and f32 verdicts and both kernels are
@@ -94,10 +100,11 @@ from tpu_pruner_torch import analyze, entry
 from tpu_pruner_torch.policy import (
     LAUNCHES, PolicyParams, _build, assert_uniform_slices, chip_pass, chip_pass_plain,
     chip_pass_q, chip_pass_q_plain, evaluate_fleet, evaluate_fleet_c, evaluate_fleet_cuda,
-    evaluate_fleet_cuda_q, evaluate_fleet_q, evaluate_fleet_qc, evaluate_fleet_qu,
-    evaluate_fleet_sharded, evaluate_fleet_sharded_q, evaluate_fleet_sharded_qc,
-    evaluate_fleet_sharded_qu, evaluate_window_qc, evaluate_window_qu, init_window,
-    make_example_fleet, make_sharded_evaluator, make_sharded_evaluator_q,
+    evaluate_fleet_cuda_q, evaluate_fleet_cuda_qc, evaluate_fleet_q, evaluate_fleet_qc,
+    evaluate_fleet_qu, evaluate_fleet_sharded, evaluate_fleet_sharded_q,
+    evaluate_fleet_sharded_qc, evaluate_fleet_sharded_qu, evaluate_window_qc,
+    evaluate_window_qu, init_window, make_example_fleet, make_sharded_evaluator,
+    make_sharded_evaluator_q,
     make_sharded_evaluator_qc, make_sharded_evaluator_qu, quantize_fleet_inputs,
     params_array, quantize_params, quantize_samples, quantize_samples_device, reset_launches,
     shard_bounds, slice_bounds, update_window, update_window_)
@@ -256,9 +263,11 @@ def _strided(x: torch.Tensor) -> torch.Tensor:
 def input_cases(seed: int, C: int = 1003, T: int = 31) -> dict:
     """name -> fn(device) giving evaluate_fleet's inputs (tc, hbm, valid, age,
     slice_id, params) that the engine takes and the kernel wrappers do not:
-    slice ids outside [0, S) (int32 and int64: 7-like, -1, S and -S), bf16,
-    f16 and f64 samples, an integer mask, f64 ages, and strided views. Views
-    are made on the device itself, since a copy across devices is contiguous."""
+    slice ids outside [0, S) (int32 and int64: 7-like, -1, S and -S; int8
+    clipped into its range; uint8 mod 256, all still outside), bf16, f16 and
+    f64 samples, an integer mask, f64 ages, and strided views. Views are
+    made on the device itself, since a copy across devices is contiguous.
+    The slice ids of the other cases are sorted."""
     rng = np.random.default_rng(seed)
     tc, hbm, valid, age = adversarial_fleet(rng, C, T)
     sid = np.sort(rng.integers(0, INPUT_SLICES, size=C))
@@ -288,6 +297,10 @@ def input_cases(seed: int, C: int = 1003, T: int = 31) -> dict:
         "slice ids outside [0, S), int32": lambda dev: fleet(
             dev, ids=torch.from_numpy(bad.astype(np.int32))),
         "slice ids outside [0, S), int64": lambda dev: fleet(dev, ids=torch.from_numpy(bad)),
+        "slice ids outside [0, S), int8": lambda dev: fleet(
+            dev, ids=torch.from_numpy(np.clip(bad, -128, 127).astype(np.int8))),
+        "slice ids outside [0, S), uint8": lambda dev: fleet(
+            dev, ids=torch.from_numpy((bad % 256).astype(np.uint8))),
         "bf16 samples": lambda dev: fleet(dev, tc=tc.bfloat16(), hbm=hbm.bfloat16()),
         "f16 samples": lambda dev: fleet(dev, tc=tc.half(), hbm=hbm.half()),
         "f64 samples and ages, uint8 mask": lambda dev: fleet(
@@ -333,19 +346,149 @@ def engine_input_check(dev, name: str, make) -> int:
     return err
 
 
+Q_CHIPS = 1024  # 64 slices of 16: uniform and sorted, so qc and qu apply
+
+
+def q_input_cases(seed: int, T: int = 31) -> dict:
+    """name -> fn(device) giving evaluate_fleet_q's inputs (tc_q, hbm_q, age,
+    slice_id, params_q) with samples the int8 wrapper refuses: int16 (salted
+    past int8's range), uint8 (salted over 127) and f32 (salted with NaN,
+    +-inf, -0.0, +-subnormals and values at and around the cutoff of 5).
+    The even slices are quiet: tc 0 or -1, hbm under the cutoff."""
+    rng = np.random.default_rng(seed)
+    C, S = Q_CHIPS, INPUT_SLICES
+    sid = np.repeat(np.arange(S, dtype=np.int32), C // S)
+    quiet = sid % 2 == 0
+    tc = np.where(rng.uniform(size=(C, T)) < 0.5, rng.integers(1, 101, size=(C, T)), 0)
+    tc[quiet] = np.where(rng.uniform(size=(int(quiet.sum()), T)) < 0.2, -1, 0)
+    hbm = rng.integers(-1, 5, size=(C, T))
+    age = np.where(rng.uniform(size=C) < 0.01, 60.0, 7200.0).astype(np.float32)
+
+    def salted(x, values):
+        x = x.astype(np.float64)
+        rows = np.flatnonzero(rng.uniform(size=C) < 1 / 40)
+        x[rows, rng.integers(0, T, size=rows.size)] = rng.choice(values, size=rows.size)
+        return x
+
+    samples = {
+        torch.int16: (salted(tc, [300, -300, 1000, 128, -129]),
+                      salted(hbm, [4, 5, 6, 300, -300])),
+        torch.uint8: (salted(np.maximum(tc, 0), [200, 255, 128]),
+                      salted(np.maximum(hbm, 0), [5, 6, 200, 255])),
+        torch.float32: (salted(tc, [np.nan, np.inf, -np.inf, -0.0, 1e-40, -1e-40, 0.5]),
+                        salted(hbm, [4.999, 5.0, 5.001, np.nan, np.inf, -np.inf, 1e-40])),
+    }
+    rest = (torch.from_numpy(age), torch.from_numpy(sid), torch.tensor([2100.0, 5.0]))
+
+    def case(dtype):
+        tc_q, hbm_q = (torch.from_numpy(x).to(dtype) for x in samples[dtype])
+        return lambda dev: tuple(x.to(dev) for x in (tc_q, hbm_q, *rest))
+
+    return {f"{str(dtype).split('.')[1]} q-samples": case(dtype) for dtype in samples}
+
+
+def q_input_check(dev, name: str, make) -> int:
+    """One q-sample case through evaluate_fleet_q, _qc, _qu and the CUDA
+    entry points on the card: one launch of the int8 kernel a path, the CPU's
+    verdicts and candidates, and the kernel equal to its plain version on the
+    mapped samples. Returns the largest mask difference (0)."""
+    gpu, cpu = make(dev), make("cpu")
+    g_pass = normalize_inputs_q(*gpu[:3], gpu[4])
+    check(g_pass[0].dtype == g_pass[1].dtype == torch.int8, f"{name}: not mapped to int8")
+    kernel, plain = chip_pass_q(*g_pass), chip_pass_q_plain(*g_pass)
+    check(torch.equal(kernel, plain), f"{name}: chip_pass_q differs from its plain version")
+
+    def bounds(x):
+        return slice_bounds(x[3], INPUT_SLICES, device=x[0].device)
+
+    def q(x):
+        return evaluate_fleet_q(*x, num_slices=INPUT_SLICES)
+
+    def qc(x):
+        return evaluate_fleet_qc(x[0], x[1], x[2], bounds(x), x[4])
+
+    def qu(x):
+        return evaluate_fleet_qu(x[0], x[1], x[2], x[4], Q_CHIPS // INPUT_SLICES)
+
+    runs = {
+        "evaluate_fleet_q": (q, q),
+        "evaluate_fleet_cuda_q": (lambda x: evaluate_fleet_cuda_q(*x, num_slices=INPUT_SLICES),
+                                  q),
+        "evaluate_fleet_qc": (qc, qc),
+        "evaluate_fleet_cuda_qc": (lambda x: evaluate_fleet_cuda_qc(
+            x[0], x[1], x[2], bounds(x), x[4]), qc),
+        "evaluate_fleet_qu": (qu, qu),
+    }
+    for path, (run, on_cpu) in runs.items():
+        before = LAUNCHES["chip_pass_q"]
+        v, c = run(gpu)
+        torch.cuda.synchronize()
+        check(LAUNCHES["chip_pass_q"] == before + 1,
+              f"{name}: {path} launched chip_pass_q {LAUNCHES['chip_pass_q'] - before} times")
+        want_v, want_c = on_cpu(cpu)
+        check(torch.equal(v.cpu(), want_v) and torch.equal(c.cpu(), want_c)
+              and torch.equal(c, kernel),
+              f"{name}: {path} on the card differs from the CPU's plain version")
+        check(0 < int(want_v.sum()) < INPUT_SLICES, f"{name}: {path} verdicts are vacuous")
+    return mask_err(kernel, plain)
+
+
+def bounds_input_check(dev, make) -> None:
+    """Slice bounds outside [0, C] (past the end, far negative, a few from
+    the end, and out of order) through evaluate_fleet_c, evaluate_fleet_qc
+    and evaluate_fleet_cuda_qc on the card, against the CPU's: the
+    reduction reads them as the reference's clamping gather does, and the
+    card asserts nothing."""
+    gpu, cpu = make(dev), make("cpu")
+    gq, cq = quantize_fleet_inputs(gpu), quantize_fleet_inputs(cpu)
+    C = gpu[0].shape[0]
+    bad = slice_bounds(cpu[4], INPUT_SLICES, device="cpu")
+    bad[-1], bad[5], bad[9], bad[20], bad[30] = C + 700, -5000, -3, C + 1, bad[40]
+    bad_g = bad.to(dev)
+    want_qc = evaluate_fleet_qc(*cq[:3], bad, cq[4])
+    runs = {
+        "evaluate_fleet_c": ("chip_pass", lambda: evaluate_fleet_c(*gpu[:4], bad_g, gpu[5]),
+                             evaluate_fleet_c(*cpu[:4], bad, cpu[5])),
+        "evaluate_fleet_qc": ("chip_pass_q", lambda: evaluate_fleet_qc(*gq[:3], bad_g, gq[4]),
+                              want_qc),
+        "evaluate_fleet_cuda_qc": ("chip_pass_q", lambda: evaluate_fleet_cuda_qc(
+            *gq[:3], bad_g, gq[4]), want_qc),
+    }
+    for path, (kind, run, (want_v, want_c)) in runs.items():
+        before = LAUNCHES[kind]
+        v, c = run()
+        torch.cuda.synchronize()
+        check(LAUNCHES[kind] == before + 1, f"bad bounds: {path} launched {kind} "
+              f"{LAUNCHES[kind] - before} times")
+        check(torch.equal(v.cpu(), want_v) and torch.equal(c.cpu(), want_c),
+              f"bad bounds: {path} on the card differs from the CPU's")
+        check(0 < int(want_v.sum()) < INPUT_SLICES, f"bad bounds: {path} verdicts are vacuous")
+
+
 def phase_engine_inputs(dev) -> int:
-    """Every input case of input_cases on the card; then one more launch of
-    each kernel, which proves the CUDA context survived the bad ids."""
+    """Every input case of input_cases and q_input_cases on the card, then
+    the bad bounds; then one more launch of each kernel, equal to its plain
+    version, which proves the CUDA context survived the bad ids and bounds."""
     cases = input_cases(99)
     err = max(engine_input_check(dev, name, make) for name, make in cases.items())
+    q_cases = q_input_cases(98)
+    err = max(err, *(q_input_check(dev, name, make) for name, make in q_cases.items()))
+    bounds_input_check(dev, cases["bf16 samples"])
     probe = cases["bf16 samples"](dev)
-    chip_pass(*normalize_inputs(*probe[:4], probe[5]))
+    f32_pass = normalize_inputs(*probe[:4], probe[5])
     q = quantize_fleet_inputs(probe)
-    chip_pass_q(*normalize_inputs_q(*q[:3], q[4]))
+    q_pass = normalize_inputs_q(*q[:3], q[4])
+    before = dict(LAUNCHES)
+    check(torch.equal(chip_pass(*f32_pass), chip_pass_plain(*f32_pass))
+          and torch.equal(chip_pass_q(*q_pass), chip_pass_q_plain(*q_pass)),
+          "a kernel differs from its plain version after the bad bounds")
     torch.cuda.synchronize()
+    check(all(LAUNCHES[k] == before[k] + 1 for k in LAUNCHES),
+          "both kernels must launch after the bad bounds")
     log(f"phase 2: the engine on {len(cases)} input cases the wrappers refuse "
-        f"({', '.join(cases)}) equals the CPU's plain versions, each kernel one launch "
-        "a path; both kernels launch after the bad-id cases")
+        f"({', '.join(cases)}), {len(q_cases)} q-sample cases ({', '.join(q_cases)}) "
+        "and out-of-range bounds equals the CPU's plain versions, each kernel one launch "
+        "a path; both kernels launch, and equal their plain versions, after the bad bounds")
     return err
 
 
@@ -558,6 +701,54 @@ def end_to_end_ms(name: str, fn, flush: torch.Tensor) -> dict:
     return {"ms": warm, "ms_cold": cold, "wall_ms": wall}
 
 
+def launch_counts(name: str, fn) -> dict | None:
+    """The device operations (kernels, memsets, copies) that one eager call
+    of fn puts on the card, by name, from a torch.profiler trace of a warm
+    call; None, and "not measured" in the log, if the trace holds no device
+    event. Uses only the engine's public API, so it can count another
+    commit's engine too."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # a profiler that cannot trace the card
+        log(f"phase 4: {name} device operations per call: not measured ({e})")
+        return None
+    ops = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            ops[event.name[:80]] = ops.get(event.name[:80], 0) + 1
+    if not ops:
+        log(f"phase 4: {name} device operations per call: not measured (no device event "
+            "in the trace)")
+        return None
+    log(f"phase 4: {name} device operations per call: {sum(ops.values())} {ops}")
+    return {"total": sum(ops.values()), "by_name": ops}
+
+
+def engine_launches() -> dict:
+    """launch_counts of evaluate_fleet_qc and _qu on the main path's fleet,
+    for whichever engine ``tpu_pruner_torch`` resolves to. Phase 4 counts
+    this checkout's; to count another commit's in the same call, load this
+    file with that checkout first on sys.path and call this function."""
+    dev = torch.device("cuda")
+    _build.build()
+    inputs, _ = make_example_fleet(CHIPS, SAMPLES, SLICES, idle_fraction=0.5, seed=0,
+                                   device=dev)
+    q = quantize_fleet_inputs(inputs)
+    bounds = slice_bounds(inputs[4], SLICES, device=dev)
+    at = f"{CHIPS}x{SAMPLES}"
+    return {
+        "evaluate_fleet_qc": launch_counts(f"{at} evaluate_fleet_qc", lambda: evaluate_fleet_qc(
+            q[0], q[1], q[2], bounds, q[4])),
+        "evaluate_fleet_qu": launch_counts(f"{at} evaluate_fleet_qu", lambda: evaluate_fleet_qu(
+            q[0], q[1], q[2], q[4], CPS)),
+    }
+
+
 def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
     """Phase 4 on one fleet: each kernel warm, cold and plain against its
     bound, the int8 kernel at T = 12, and the end-to-end paths. Returns
@@ -602,14 +793,19 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
     for _ in range(WINDOW_CHUNKS):
         state = update_window_(state, tc_new, hbm_new)
     ring_bytes = sum(x.nbytes for x in (state[0], state[1], age, parr_q)) + C
-    ring_ms = time_ms(lambda: chip_pass_q(state[0], state[1], age, parr_q), 200)
+    ring_args = (state[0], state[1], age, parr_q)
+    ring_ms = time_ms(lambda: chip_pass_q(*ring_args), 200)
+    ring_cold = time_ms(lambda: chip_pass_q(*ring_args), 200, flush)
+    ring_plain = time_ms(lambda: chip_pass_q_plain(*ring_args), 20)
     ring_bound = ring_bytes / HBM_BYTES_PER_S * 1e3
     plan = _plan_q(C, WINDOW_CHUNKS, _sm_count(tc.device))
-    rows["chip_pass_q"]["window"] = {"T": WINDOW_CHUNKS, "ms": ring_ms, "bound_ms": ring_bound,
+    rows["chip_pass_q"]["window"] = {"T": WINDOW_CHUNKS, "ms": ring_ms, "ms_cold": ring_cold,
+                                     "plain_ms": ring_plain, "bound_ms": ring_bound,
                                      "bytes": ring_bytes, "plan": plan._asdict()}
-    log(f"phase 4: {at} chip_pass_q at T={WINDOW_CHUNKS}: kernel {ring_ms:.4f} ms warm, bound "
-        f"{ring_bound:.4f} ms ({ring_bytes} bytes; {ring_bound / ring_ms:.3f} of the bound; "
-        f"plan {plan})")
+    log(f"phase 4: {at} chip_pass_q at T={WINDOW_CHUNKS}: kernel {ring_ms:.4f} ms warm, "
+        f"{ring_cold:.4f} ms cold, plain {ring_plain:.4f} ms, bound {ring_bound:.4f} ms "
+        f"({ring_bytes} bytes; {ring_bound / ring_ms:.3f} of the bound warm, "
+        f"{ring_bound / ring_cold:.3f} cold; plan {plan})")
 
     bounds = slice_bounds(slice_id, num_slices, device=tc.device)
     e2e = {
@@ -627,6 +823,8 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
             lambda update=update: evaluate_window_qu(update(state, tc_new, hbm_new), age,
                                                      parr_q, cps))
     end_to_end = {name: end_to_end_ms(f"{at} {name}", fn, flush) for name, fn in e2e.items()}
+    for name in ("evaluate_fleet_qc", "evaluate_fleet_qu"):
+        end_to_end[name]["device_ops"] = launch_counts(f"{at} {name}", e2e[name])
     amax_ms = time_ms(lambda: torch.amax(tc, 1), 50)
     log(f"context (not a port of either kernel): {at} torch.amax(tc, 1) {amax_ms:.4f} ms")
     return rows, end_to_end

@@ -1,6 +1,7 @@
 """The port's engine against the JAX engine where their inputs are unusual:
-branched windows, slice ids outside [0, S), every dtype and layout the
-reference takes, and window cursors outside [0, K).
+branched windows, slice ids outside [0, S) and of every integer dtype,
+every sample dtype and layout the reference takes on the f32 and int8
+paths, contiguous bounds outside [0, C], and window cursors outside [0, K).
 
 The same seeded numpy inputs go through tpu_pruner.policy and
 tpu_pruner_torch.policy (CPU tensors, so the kernels' plain versions); the
@@ -19,6 +20,7 @@ from jax.sharding import Mesh
 
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner_torch import policy as tp
+from tpu_pruner_torch.policy import engine as teng
 from tpu_pruner_torch.policy import sharded
 
 CPU = "cpu"
@@ -408,3 +410,243 @@ def test_window_cursor_matches_reference(cursor):
         assert s1[2].dtype == torch.int32 and s1[2].dim() == 0
         assert (written(before.numpy(), s1[0].numpy()), int(s1[2])) == want, form.__name__
         assert_same(j1[:2], s1[:2])
+
+
+# -- int8-path samples of any dtype ---------------------------------------------
+
+Q_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
+            "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
+            "uint8": torch.uint8}
+Q_PATHS = ("evaluate_chips_q", "evaluate_fleet_q", "evaluate_fleet_qc", "evaluate_fleet_qu")
+Q_CUTOFFS = (5.0, np.inf)
+
+
+def q_values(dtype, values):
+    """The values of ``values`` that ``dtype`` holds (no NaN or inf in an
+    integer dtype, nothing negative in uint8, nothing over 127 in int8)."""
+    v = np.array(values, dtype=np.float64)
+    if dtype.startswith(("int", "uint")):
+        info = np.iinfo(dtype)
+        v = v[np.isfinite(v) & (v >= info.min) & (v <= info.max)]
+    return v
+
+
+def q_fleet(seed, dtype, C=96, T=12, S=24):
+    """int8-path inputs in ``dtype``: four chips a slice, the even slices
+    quiet. tc is 0 or -1 on quiet rows, and up to 255 (uint8) or 300 (wider)
+    on busy rows; hbm lies under the cutoff. One row in eight gets a tc
+    special (NaN, +-inf, -0.0, +-subnormal for floats, 200, 255), one in six
+    an hbm special or a value at or around the cutoff. Returns (port inputs, JAX inputs)
+    with the cutoff still to be chosen: (tc, hbm, age, slice_id)."""
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(np.arange(S, dtype=np.int32), C // S)
+    quiet = ids % 2 == 0
+    sub = SUBNORMAL.get(dtype, 0.0)
+    idle_vals = q_values(dtype, [0, 0, 0, -1])
+    tc = np.where(quiet[:, None], rng.choice(idle_vals, size=(C, T)),
+                  np.where(rng.uniform(size=(C, T)) < 0.5,
+                           rng.choice(q_values(dtype, [1, 5, 100, 127, 200, 255, 300, 0.5,
+                                                       np.inf]), size=(C, T)), 0.0))
+    hbm = rng.choice(q_values(dtype, [0, 1, 4, -1, 4.5]), size=(C, T))
+    specials = q_values(dtype, [np.nan, np.inf, -np.inf, -0.0, sub, -sub, 200, 255])
+    for x, share, vals in ((tc, 1 / 8, specials),
+                           (hbm, 1 / 6, np.concatenate([specials, q_values(
+                               dtype, [5, 6, 4.999, 5.001, 5 + 2 ** -20, 128, 300])]))):
+        rows = np.flatnonzero(rng.uniform(size=C) < share)
+        x[rows, rng.integers(0, T, size=rows.size)] = rng.choice(vals, size=rows.size)
+    age = np.where(rng.uniform(size=C) < 0.05, 60.0, 7200.0).astype(np.float32)
+    tc, hbm = (torch.from_numpy(x).to(Q_DTYPES[dtype]) for x in (tc, hbm))
+    return ((tc, hbm, torch.from_numpy(age), torch.from_numpy(ids)),
+            (to_jax(tc), to_jax(hbm), jnp.asarray(age), jnp.asarray(ids)))
+
+
+def q_path(module, path, tc, hbm, age, ids, pq, S, bounds):
+    """One int8 entry point of the JAX engine or the port on the same inputs."""
+    if path == "evaluate_chips_q":
+        return [module.evaluate_chips_q(tc, hbm, age, pq[0], pq[1])]
+    if path == "evaluate_fleet_q":
+        return module.evaluate_fleet_q(tc, hbm, age, ids, pq, num_slices=S)
+    if path == "evaluate_fleet_qc":
+        return module.evaluate_fleet_qc(tc, hbm, age, bounds, pq)
+    return module.evaluate_fleet_qu(tc, hbm, age, pq, chips_per_slice=tc.shape[0] // S)
+
+
+@pytest.mark.parametrize("path", Q_PATHS)
+@pytest.mark.parametrize("dtype", sorted(Q_DTYPES))
+def test_q_sample_dtypes_match_reference(dtype, path):
+    """int16/32/64, uint8 (over 127 too), f32, f16 and bf16 samples on the
+    int8 paths, with a finite and a disabled (+inf) quantized cutoff: the
+    reference runs its max in the samples' own dtype, the port maps them
+    to int8 first (normalize_inputs_q)."""
+    S = 24
+    inputs, jinputs = q_fleet(91, dtype)
+    bounds = tp.slice_bounds(inputs[3], S, device=CPU)
+    jbounds = jeng.slice_bounds(np.asarray(jinputs[3]), S)
+    for cutoff in Q_CUTOFFS:
+        pq = np.array([2100.0, cutoff], np.float32)
+        ref = q_path(jeng, path, *jinputs, jnp.asarray(pq), S, jbounds)
+        got = q_path(tp, path, *inputs, t(pq), S, bounds)
+        assert_same(ref, got, f"{path}, cutoff {cutoff}")
+        if cutoff == Q_CUTOFFS[0] and path != "evaluate_chips_q":
+            assert 0 < int(np.asarray(ref[0]).sum()) < S
+
+
+
+# special -> (tc row, hbm row, quantized cutoff, idle in f16, idle in bf16/f32/f64);
+# "sub" is the dtype's subnormal, and the answers are the reference's
+Q_SPECIALS = {
+    "tc subnormal": ([0, "sub", 0, 0], [0, 0, 0, 0], 5e-8, False, True),
+    "tc nan": ([0, np.nan, 0, 0], [0, 0, 0, 0], 5e-8, False, False),
+    "hbm subnormal": ([0, 0, 0, 0], [0, "sub", 0, 0], 5e-8, False, True),
+    "hbm nan": ([0, 0, 0, 0], [0, np.nan, 9, 0], 5e-8, True, True),
+    "hbm -subnormal, cutoff 0": ([0, 0, 0, 0], [-1, "-sub", -1, -1], 0.0, True, False),
+    "hbm 0, subnormal cutoff": ([0, 0, 0, 0], [-1, 0, -1, -1], 1e-40, False, False),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(SUBNORMAL))
+@pytest.mark.parametrize("special", sorted(Q_SPECIALS))
+def test_special_q_sample_verdicts(dtype, special):
+    """One chip on the int8 path with one special sample of ``dtype``, the
+    rule the reference's answers give: a float is cast to f32 and then
+    flushed, so a tc or hbm subnormal is non-zero in f16 (it widens to a
+    normal f32) and zero in bf16, f32 and f64; a tc NaN reads busy; a NaN
+    hbm row never meets the cutoff, even with a 9 beside the NaN; and a
+    subnormal cutoff is flushed to 0."""
+    tc_row, hbm_row, cutoff, idle_f16, idle_other = Q_SPECIALS[special]
+    sub = {"sub": SUBNORMAL[dtype], "-sub": -SUBNORMAL[dtype]}
+    tc, hbm = (torch.tensor([[sub.get(v, v) for v in row]], dtype=torch.float64)
+               .to(TORCH_DTYPES[dtype]) for row in (tc_row, hbm_row))
+    pq = np.array([2100.0, cutoff], np.float32)
+    rest = (np.full(1, 7200, np.float32), np.zeros(1, np.int32), pq)
+    ref = jeng.evaluate_fleet_q(to_jax(tc), to_jax(hbm), *(jnp.asarray(r) for r in rest),
+                                num_slices=1)
+    got = tp.evaluate_fleet_q(tc, hbm, *(t(r) for r in rest), num_slices=1)
+    assert_same(ref, got)
+    assert got[0].tolist() == [idle_f16 if dtype == "float16" else idle_other]
+
+
+@pytest.mark.parametrize("dtype", ["int16", "uint8"])
+def test_sharded_q_evaluators_take_any_sample_dtype(dtype, one_rank):
+    """The sharded int8 entry points and builders map samples to int8 before
+    they pad, and equal the reference's single-device results."""
+    S = 24
+    cps = 4
+    inputs, jinputs = q_fleet(93, dtype)
+    tc, hbm, age, ids = inputs
+    bounds = tp.slice_bounds(ids, S, device=CPU)
+    for cutoff in Q_CUTOFFS:
+        pq = np.array([2100.0, cutoff], np.float32)
+        jpq = jnp.asarray(pq)
+        ref_q = jeng.evaluate_fleet_q(*jinputs, jpq, num_slices=S)
+        ref_qc = jeng.evaluate_fleet_qc(*jinputs[:3], jeng.slice_bounds(np.asarray(ids), S),
+                                        jpq)
+        ref_qu = jeng.evaluate_fleet_qu(*jinputs[:3], jpq, chips_per_slice=cps)
+        assert_same(ref_q, tp.evaluate_fleet_sharded_q(*inputs, t(pq), num_slices=S), "q")
+        assert_same(ref_qc, tp.evaluate_fleet_sharded_qc(tc, hbm, age, bounds, t(pq)), "qc")
+        assert_same(ref_qu, tp.evaluate_fleet_sharded_qu(tc, hbm, age, t(pq), cps), "qu")
+        assert_same(ref_q, sharded.run_local(tp.make_sharded_evaluator_q, S, *inputs, t(pq)),
+                    "builder q")
+        assert_same(ref_qc, sharded.run_local(
+            tp.make_sharded_evaluator_qc, S, tc, hbm, age,
+            tp.shard_bounds(bounds, 1, tc.shape[0], device=CPU), t(pq)), "builder qc")
+        assert_same(ref_qu, sharded.run_local(tp.make_sharded_evaluator_qu, cps, tc, hbm, age,
+                                              t(pq)), "builder qu")
+
+
+def test_main_path_inputs_pass_untouched():
+    """int8 contiguous samples, f32 ages and params, and int32 or int64 ids
+    come back as the very tensors given: no copy and no device work."""
+    tc = torch.zeros((8, 3), dtype=torch.int8)
+    hbm, age, pq = tc.clone(), torch.zeros(8), torch.tensor([2100.0, 5.0])
+    out = teng.normalize_inputs_q(tc, hbm, age, pq)
+    assert all(a is b for a, b in zip(out, (tc, hbm, age, pq)))
+    for dtype in (torch.int32, torch.int64):
+        ids = torch.zeros(8, dtype=dtype)
+        assert teng.normalize_slice_ids(ids) is ids
+
+
+# -- contiguous bounds outside [0, C] --------------------------------------------
+
+BOUND_CASES = {
+    "past the end": [0, 4, 8, 12, 20],
+    "far negative": [-40, -17, -3, 0, 16],
+    "out of order, past the end": [0, 4, 20, 8, 16],
+    "all past the end": [0, 100, 200, 300, 400],
+    "negative, descending past the start": [-1, -2, -3, -17, -18],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_out_of_range_bounds_match_reference(case):
+    """Bounds outside [0, C] on 16 chips with two busy chips: read as the
+    reference's gather reads them (negative from the end, then clamped),
+    through slice_verdicts_contiguous, evaluate_fleet_c and _qc."""
+    C, T = 16, 4
+    bounds = np.array(BOUND_CASES[case], np.int32)
+    tc = np.zeros((C, T), np.float32)
+    tc[[5, 14], 1] = 0.5
+    fleet = (tc, np.zeros((C, T), np.float32), np.ones((C, T), bool),
+             np.full(C, 7200, np.float32))
+    jfleet = tuple(jnp.asarray(x) for x in fleet)
+    inputs = tuple(t(x) for x in fleet)
+    candidate = tc.max(axis=1) == 0
+    assert_same([jeng.slice_verdicts_contiguous(jnp.asarray(candidate), jnp.asarray(bounds))],
+                [tp.slice_verdicts_contiguous(t(candidate), t(bounds))], "verdicts")
+    assert_same(jeng.evaluate_fleet_c(*jfleet, jnp.asarray(bounds), jnp.asarray(params())),
+                tp.evaluate_fleet_c(*inputs, t(bounds), t(params())), "evaluate_fleet_c")
+    jq = jeng.quantize_fleet_inputs((*jfleet, None, jnp.asarray(params())))
+    q = tp.quantize_fleet_inputs((*inputs, None, t(params())))
+    assert_same(jeng.evaluate_fleet_qc(jq[0], jq[1], jq[2], jnp.asarray(bounds), jq[4]),
+                tp.evaluate_fleet_qc(q[0], q[1], q[2], t(bounds), q[4]), "evaluate_fleet_qc")
+
+
+# -- slice ids of every integer dtype ---------------------------------------------
+
+NARROW_ID_DTYPES = ("int8", "int16", "uint8", "uint16", "uint32")
+
+
+@pytest.mark.parametrize("id_dtype", NARROW_ID_DTYPES)
+def test_narrow_and_unsigned_ids_match_reference(id_dtype, one_rank):
+    """Ids of every narrow or unsigned integer dtype, over 200 slices (more
+    than int8 holds, so the sharded forms' sentinel segment needs the ids
+    widened), some ids outside [0, S): slice_verdicts, evaluate_fleet(_q)
+    and their sharded forms equal the reference."""
+    rng = np.random.default_rng(97)
+    C, T, S = 400, 4, 200
+    info = np.iinfo(id_dtype)
+    ids = rng.integers(max(info.min, -20), min(info.max, 260) + 1, size=C).astype(id_dtype)
+    tc = ((rng.uniform(size=(C, T)) < 0.02) * 0.5).astype(np.float32)
+    fleet = (tc, np.zeros((C, T), np.float32), np.ones((C, T), bool),
+             np.full(C, 7200, np.float32), ids, params())
+    jfleet = tuple(jnp.asarray(x) for x in fleet)
+    inputs = tuple(t(x) for x in fleet)
+    assert inputs[4].dtype == getattr(torch, id_dtype)
+    ref = jeng.evaluate_fleet(*jfleet, num_slices=S)
+    assert 0 < int(np.asarray(ref[0]).sum()) < S
+    assert_same([jeng.slice_verdicts(ref[1], jfleet[4], S)],
+                [tp.slice_verdicts(t(np.array(ref[1])), inputs[4], S)], "slice_verdicts")
+    assert_same(ref, tp.evaluate_fleet(*inputs, num_slices=S), "evaluate_fleet")
+    assert_same(ref, tp.evaluate_fleet_sharded(*inputs, num_slices=S), "sharded")
+    jq = jeng.quantize_fleet_inputs(jfleet)
+    q = tp.quantize_fleet_inputs(inputs)
+    ref_q = jeng.evaluate_fleet_q(*jq, num_slices=S)
+    assert_same(ref_q, tp.evaluate_fleet_q(*q, num_slices=S), "evaluate_fleet_q")
+    assert_same(ref_q, tp.evaluate_fleet_sharded_q(*q, num_slices=S), "sharded_q")
+
+
+@pytest.mark.parametrize("id_dtype", ["bool", "float32"])
+def test_bool_and_float_ids_are_refused(id_dtype):
+    """The reference refuses bool and float slice ids; so does the port,
+    with a TypeError that names the dtype."""
+    C, S = 6, 3
+    ids = np.array([0, 0, 1, 1, 0, 1]).astype(id_dtype)
+    fleet = (np.zeros((C, 4), np.float32), np.zeros((C, 4), np.float32),
+             np.ones((C, 4), bool), np.full(C, 7200, np.float32), ids, params())
+    with pytest.raises((IndexError, TypeError)):
+        jeng.evaluate_fleet(*(jnp.asarray(x) for x in fleet), num_slices=S)
+    inputs = tuple(t(x) for x in fleet)
+    for run in (lambda: tp.evaluate_fleet(*inputs, num_slices=S),
+                lambda: tp.slice_verdicts(torch.ones(C, dtype=torch.bool), inputs[4], S)):
+        with pytest.raises(TypeError, match=id_dtype):
+            run()

@@ -70,6 +70,15 @@ def heterogeneous_fleet():
     return quantized(inputs), np.asarray(jeng.slice_bounds(slice_id, S))
 
 
+def widened(q, dtype, salt):
+    """int8-path inputs with the samples in ``dtype`` and salted: salt maps
+    (array index, chip, sample) to a value that int8 cannot hold."""
+    tc, hbm = (q[i].astype(dtype) for i in (0, 1))
+    for (i, chip, sample), value in salt.items():
+        (tc, hbm)[i][chip, sample] = value
+    return (tc, hbm, *q[2:])
+
+
 def veto_qc_fleet():
     """Slice 0 is chips 0..47 (6 a shard), its busy chip in a late shard."""
     C = 64
@@ -111,6 +120,11 @@ def cases():
     u_100 = quantized(example(100, 10, 0.3)[0])
     u_128 = quantized(example(128, 8, 0.5)[0])
     tcs, hbms, age, pq = stream_chunks()
+    # 200 and 300 veto an idle slice (1 and 0); an int8 wrap would read them idle
+    q_100_u8 = widened(q_100, np.uint8, {(0, 3, 0): 200})
+    het_i16 = widened(het_q, np.int16, {(0, 5, 0): 300, (1, 40, 3): -300})
+    u_100_u8 = widened(u_100, np.uint8, {(0, 2, 1): 200})
+    ids_i8 = (np.arange(100) - 10).astype(np.int8)  # 200 slices, the first ten ids dropped
     mesh = jax_mesh()
     lb_128 = np.asarray(jeng.shard_bounds(
         jeng.slice_bounds(f32_128[4], 16), RANKS, 128 // RANKS))
@@ -176,6 +190,18 @@ def cases():
         "stream_step": (
             (sharded.run_stream_local, (4, 5, tcs, hbms, age, pq)),
             jax_stream),
+        "fleet_sharded_q_uneven_uint8": (
+            (tp.evaluate_fleet_sharded_q, (*q_100_u8, 10)),
+            lambda: jeng.evaluate_fleet_q(*q_100_u8, num_slices=10)),
+        "fleet_sharded_qc_heterogeneous_int16": (
+            (tp.evaluate_fleet_sharded_qc, (*het_i16[:3], het_bounds, het_q[4])),
+            lambda: jeng.evaluate_fleet_qc(*het_i16[:3], jnp.asarray(het_bounds), het_q[4])),
+        "fleet_sharded_qu_padded_slices_uint8": (
+            (tp.evaluate_fleet_sharded_qu, (*u_100_u8[:3], u_100[4], 10)),
+            lambda: jeng.evaluate_fleet_qu(*u_100_u8[:3], u_100[4], chips_per_slice=10)),
+        "fleet_sharded_int8_ids_200_slices": (
+            (tp.evaluate_fleet_sharded, (*f32_100[:4], ids_i8, f32_100[5], 200)),
+            lambda: jeng.evaluate_fleet(*f32_100[:4], ids_i8, f32_100[5], num_slices=200)),
     }
 
 
@@ -230,13 +256,17 @@ def test_builder_qu_matches_mesh(runs):
 
 GLOBAL_CASES = ["fleet_sharded_uneven", "fleet_sharded_q_uneven", "fleet_sharded_q_veto",
                 "fleet_sharded_qc_heterogeneous", "fleet_sharded_qc_veto",
-                "fleet_sharded_qu_padded_slices"]
+                "fleet_sharded_qu_padded_slices", "fleet_sharded_q_uneven_uint8",
+                "fleet_sharded_qc_heterogeneous_int16", "fleet_sharded_qu_padded_slices_uint8",
+                "fleet_sharded_int8_ids_200_slices"]
 
 
 @pytest.mark.parametrize("case", GLOBAL_CASES)
 def test_evaluate_fleet_sharded_matches_mesh(runs, case):
-    """Global results, the same on every rank, equal the mesh's; chip
-    counts of 100 pad to 104, and 10 uniform slices pad to 16."""
+    """Global results, the same on every rank, equal the mesh's (the
+    single-device reference's for samples int8 cannot hold, and for int8
+    ids whose padding segment, 200, int8 cannot hold); chip counts of 100
+    pad to 104, and 10 uniform slices pad to 16."""
     per_rank, ref = runs[case]
     for rank, got in enumerate(per_rank):
         assert_equal(ref[0], got[0], f"rank {rank} verdicts")

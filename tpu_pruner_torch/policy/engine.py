@@ -19,7 +19,11 @@ present, unless the caller asked for ``"cpu"``.
 The evaluators take what the reference takes: samples of any float or
 integer dtype (widened or rounded to f32 first, as JAX does with x64 off),
 validity masks of any dtype (nonzero is valid), f64 or integer ages, and
-strided views (``normalize_inputs``). The kernel wrappers stay strict.
+strided views (``normalize_inputs``); int8-path samples of any dtype
+(``normalize_inputs_q``); slice ids of any integer dtype
+(``normalize_slice_ids``); and contiguous bounds outside ``[0, C]``, read
+as the reference's clamping gather reads them. The kernel wrappers stay
+strict.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .kernels import _FLT_MIN, chip_pass, chip_pass_q
+from .kernels import _FLT_MIN, chip_pass, chip_pass_q, flush_subnormal
 
 
 def resolve_device(device) -> torch.device:
@@ -88,9 +92,61 @@ def normalize_inputs(tc_util, hbm_util, valid, pod_age_s, params_arr):
             _f32(params_arr))
 
 
+def _sign_q(x: torch.Tensor) -> torch.Tensor:
+    """int8 samples whose row maximum has the sign of x's (NaN counts as
+    positive): all that the int8 pass's ``peak == 0`` reads of tc.
+
+    A float is read as the reference reads it, cast to f32 and then flushed,
+    so an f16 subnormal is positive and a bf16 one zero; NaN propagates into
+    the reference's peak, which is then not 0.
+    """
+    if x.is_floating_point():
+        x = flush_subnormal(x.to(torch.float32))
+        return ((x > 0) | x.isnan()).to(torch.int8) - (x < 0).to(torch.int8)
+    if x.dtype == torch.bool or not x.is_signed():
+        return (x != 0).to(torch.int8)
+    return x.clamp(-1, 1).to(torch.int8)
+
+
+def _at_least_q(x: torch.Tensor, cutoff: torch.Tensor) -> torch.Tensor:
+    """int8 0/1 samples, 1 where the reference's ``peak >= cutoff`` would
+    hold for x alone: the f32 value of x (flushed, for floats) against the
+    flushed cutoff. A row with a NaN is all 0, since its peak is NaN."""
+    if not x.is_floating_point():
+        return (x.to(torch.float32) >= cutoff).to(torch.int8)
+    x = flush_subnormal(x.to(torch.float32))
+    return ((x >= cutoff) & ~x.isnan().any(dim=-1, keepdim=True)).to(torch.int8)
+
+
 def normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q):
-    """normalize_inputs for the int8 pass: the samples stay int8."""
-    return tc_q.contiguous(), hbm_q.contiguous(), _f32(pod_age_s), _f32(params_arr_q)
+    """normalize_inputs for the int8 pass: (tc_q, hbm_q, age, params_q).
+
+    int8 samples stay as they are. Samples of any other dtype, which the
+    reference takes as they come (its max runs in their own dtype), are
+    mapped to int8 so that both of its predicates stay exact: tc to the
+    sign of each sample (``peak == 0`` needs no more), hbm to 1 where the
+    sample alone meets the cutoff and 0 elsewhere, with the returned
+    params' cutoff then 1.0. Integers are read without the wrap that JAX's
+    x64-off narrowing gives int64, as ``normalize_inputs`` reads them.
+    """
+    params_arr_q = _f32(params_arr_q)
+    if tc_q.dtype != torch.int8:
+        tc_q = _sign_q(tc_q)
+    if hbm_q.dtype != torch.int8:
+        hbm_q = _at_least_q(hbm_q, flush_subnormal(params_arr_q[1]))
+        params_arr_q = torch.stack([params_arr_q[0], params_arr_q.new_ones(())])
+    return tc_q.contiguous(), hbm_q.contiguous(), _f32(pod_age_s), params_arr_q
+
+
+def normalize_slice_ids(slice_id: torch.Tensor) -> torch.Tensor:
+    """Slice ids as index_add_ takes them: int32 and int64 ids as they are,
+    any other integer dtype widened to int64. Bool and float ids raise
+    TypeError, as the reference's segment_sum refuses them."""
+    if slice_id.dtype in (torch.int32, torch.int64):
+        return slice_id
+    if slice_id.dtype == torch.bool or slice_id.is_floating_point() or slice_id.is_complex():
+        raise TypeError(f"slice ids must be integers, got {slice_id.dtype}")
+    return slice_id.to(torch.int64)
 
 
 def evaluate_chips(tc_util, hbm_util, valid, pod_age_s, lookback_s, hbm_cutoff):
@@ -121,7 +177,9 @@ def slice_counts(candidate, slice_id, num_slices: int):
     reference's segment_sum drops it: it is added into one extra segment
     that is cut off, so no id is ever out of range for index_add_ (which
     raises on the CPU and asserts on the card) and nothing syncs the host.
+    Ids of any integer dtype are taken (normalize_slice_ids).
     """
+    slice_id = normalize_slice_ids(slice_id)
     keep = (slice_id >= 0) & (slice_id < num_slices)
     index = torch.where(keep, slice_id, num_slices)
     busy = torch.zeros(num_slices + 1, dtype=torch.int32, device=candidate.device)
@@ -239,11 +297,20 @@ def slice_verdicts_contiguous(candidate, bounds):
 
 
 def slice_counts_contiguous(candidate, bounds):
-    """Per-slice (busy chips, chips) as int32[S] each, by cumsum + gather."""
-    busy_cum = torch.cumsum((~candidate).to(torch.int32), dim=0)
+    """Per-slice (busy chips, chips) as int32[S] each, by cumsum + gather.
+
+    The C + 1 prefix sums are gathered once at all S + 1 bounds, as the
+    reference's gather reads them: a negative bound counts from the end,
+    and the result is clamped into [0, C], so no bound is ever out of range
+    (which would raise on the CPU and assert on the card). The chip counts
+    are the raw bounds' differences, as in the reference, so an empty or
+    inverted slice is never idle.
+    """
+    busy_cum = torch.cumsum(~candidate, dim=0, dtype=torch.int32)
     busy_cum = torch.cat([busy_cum.new_zeros(1), busy_cum])
-    start, end = bounds[:-1].long(), bounds[1:].long()
-    return busy_cum[end] - busy_cum[start], (end - start).to(torch.int32)
+    num = busy_cum.shape[0]
+    at = busy_cum[bounds.long().clamp(-num, num - 1)]
+    return at[1:] - at[:-1], (bounds[1:] - bounds[:-1]).to(torch.int32)
 
 
 def evaluate_fleet_c(tc_util, hbm_util, valid, pod_age_s, bounds, params_arr):

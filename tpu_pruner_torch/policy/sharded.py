@@ -43,8 +43,8 @@ import torch
 import torch.distributed as dist
 
 from .engine import (INVALID_Q, evaluate_fleet_qu, init_window, normalize_inputs,
-                     normalize_inputs_q, resolve_device, slice_counts,
-                     slice_counts_contiguous, update_window)
+                     normalize_inputs_q, normalize_slice_ids, resolve_device,
+                     slice_counts, slice_counts_contiguous, update_window)
 from .kernels import chip_pass, chip_pass_q
 
 
@@ -140,14 +140,16 @@ def _evaluate_sharded_impl(chip_arrays, pad_values, params_arr, num_slices: int,
     Chips are padded to a world-size multiple with verdict-neutral rows
     (valid=False for f32 storage, the -1 sentinel for int8: an all-invalid
     chip is never a candidate) whose slice id is a sentinel segment
-    ``num_slices``, one extra segment that is sliced off the output.
+    ``num_slices``, one extra segment that is sliced off the output. The
+    ids are widened first (normalize_slice_ids), so the sentinel fits them.
     """
     n, rank = _world(group)
     num_chips = chip_arrays[0].shape[0]
     shard = -(-num_chips // n)
     start = rank * shard
+    *samples, slice_id = chip_arrays
     rows = [_padded_rows(x, start, start + shard, pv)
-            for x, pv in zip(chip_arrays, pad_values)]
+            for x, pv in zip((*samples, normalize_slice_ids(slice_id)), pad_values)]
     evaluator = _make_sharded_impl(num_slices + 1, group, quantized)
     verdicts, candidate = evaluator(*rows, params_arr)
     candidates = _assemble(candidate, start, n * shard, group)
@@ -166,9 +168,12 @@ def evaluate_fleet_sharded(tc_util, hbm_util, valid, pod_age_s, slice_id, params
 
 def evaluate_fleet_sharded_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q,
                              num_slices: int, group=None):
-    """evaluate_fleet_q over the ranks of ``group`` (int8 storage)."""
+    """evaluate_fleet_q over the ranks of ``group`` (int8 storage). Samples
+    of another dtype are mapped to int8 (normalize_inputs_q) before the -1
+    padding, on the global tensors."""
+    *arrays, params_arr_q = normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q)
     return _evaluate_sharded_impl(
-        (tc_q, hbm_q, pod_age_s, slice_id),
+        (*arrays, slice_id),
         (INVALID_Q, INVALID_Q, 0.0, num_slices),
         params_arr_q, num_slices, group, quantized=True)
 
@@ -226,13 +231,14 @@ def make_sharded_evaluator_qu(chips_per_slice: int, group=None):
 def evaluate_fleet_sharded_qc(tc_q, hbm_q, pod_age_s, bounds, params_arr_q, group=None):
     """evaluate_fleet_qc over the ranks of ``group``: per-rank cumsum + one
     all-reduce. Chips are padded to a world-size multiple with -1 rows,
-    which lie outside every bound."""
+    which lie outside every bound, after normalize_inputs_q."""
     n, rank = _world(group)
+    *arrays, params_arr_q = normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q)
     num_chips = tc_q.shape[0]
     shard = -(-num_chips // n)
     start = rank * shard
     rows = [_padded_rows(x, start, start + shard, pv)
-            for x, pv in zip((tc_q, hbm_q, pod_age_s), (INVALID_Q, INVALID_Q, 0.0))]
+            for x, pv in zip(arrays, (INVALID_Q, INVALID_Q, 0.0))]
     local_bounds = shard_bounds(bounds, n, shard, device=tc_q.device)[rank]
     evaluator = make_sharded_evaluator_qc(bounds.shape[0] - 1, group)
     verdicts, candidate = evaluator(*rows, local_bounds, params_arr_q)
@@ -243,9 +249,11 @@ def evaluate_fleet_sharded_qu(tc_q, hbm_q, pod_age_s, params_arr_q,
                               chips_per_slice: int, group=None):
     """evaluate_fleet_qu over the ranks of ``group``, with no collective for
     the verdicts. Slices are padded to a world-size multiple with whole
-    all-invalid slices, never idle and sliced off the output. Validate the
-    layout with assert_uniform_slices at ingest."""
+    all-invalid slices, never idle and sliced off the output, after
+    normalize_inputs_q. Validate the layout with assert_uniform_slices at
+    ingest."""
     n, rank = _world(group)
+    *arrays, params_arr_q = normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q)
     num_chips = tc_q.shape[0]
     if num_chips % chips_per_slice != 0:
         raise ValueError(
@@ -255,7 +263,7 @@ def evaluate_fleet_sharded_qu(tc_q, hbm_q, pod_age_s, params_arr_q,
     shard = slices_per_rank * chips_per_slice
     start = rank * shard
     rows = [_padded_rows(x, start, start + shard, pv)
-            for x, pv in zip((tc_q, hbm_q, pod_age_s), (INVALID_Q, INVALID_Q, 0.0))]
+            for x, pv in zip(arrays, (INVALID_Q, INVALID_Q, 0.0))]
     evaluator = make_sharded_evaluator_qu(chips_per_slice, group)
     verdicts, candidate = evaluator(*rows, params_arr_q)
     verdicts = _assemble(verdicts, rank * slices_per_rank, n * slices_per_rank, group)
