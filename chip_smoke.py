@@ -5,8 +5,9 @@ Phases, each of which exits non-zero on failure:
 
 1. build the CUDA kernels from tpu_pruner_torch/policy/csrc with nvcc
    (sm_90a), print each kernel's registers, shared memory and spills
-   (a second nvcc with -Xptxas -v, started with the build), and print the
-   card's name and power limit;
+   (a second nvcc with -Xptxas -v, started with the build; the int8 pass's
+   row design at T = 12, and its registers and spills over every T it has a
+   kernel for), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on an adversarial
    fleet (ragged chip counts, T in {1, 12, 31, 360, 361}, all-invalid rows,
    NaN, subnormals, -0.0, +-inf, finite/+inf/subnormal cutoffs, young
@@ -15,7 +16,10 @@ Phases, each of which exits non-zero on failure:
    {1, 12, 31, 360, 361, 10080}, C in {1, 17, 1003}, contiguous tensors and
    views whose data pointers are off a 16-byte boundary (x[1:] of a
    [C+1, T] tensor, and arbitrary byte offsets), rows of all -1, -128 and
-   127, and one full-width 131,072 x 360 view. Then the engine on the inputs
+   127, and one full-width 131,072 x 360 view. Then the int8 kernel's two
+   designs (SWEEP_T x SWEEP_C, bases at byte offsets 0-15, hbm alone and the
+   ages alone off a 16-byte boundary): bit-equal to the plain version, each
+   launch in the design that its plan promises. Then the engine on the inputs
    the reference takes and the kernel wrappers refuse (input_cases: slice
    ids outside [0, S) as int32, int64, int8 and uint8, bf16, f16 and f64
    samples, an integer mask, f64 ages, strided views) through
@@ -39,8 +43,9 @@ Phases, each of which exits non-zero on failure:
    its plain version and its bound at the card's published rates: warm
    (back to back) and cold (a 256 MB scratch buffer zeroed before each
    launch, outside the events, so the 50 MB L2 holds none of the inputs);
-   the int8 kernel also at T = 12, the streaming window's shape, warm, cold
-   and plain; and, end to end, evaluate_fleet_qc, evaluate_fleet_qu and one
+   the int8 kernel also at T = 12, the streaming window's shape, in both
+   designs warm and cold, and plain (also on the dry run's 32,768 rows a
+   rank); and, end to end, evaluate_fleet_qc, evaluate_fleet_qu and one
    streaming cycle in each form (update_window_ in place, or update_window
    with fresh rings, + evaluate_window_qc or _qu): device time, warm and
    cold, from replays of a CUDA graph of one call, eager host wall time per
@@ -49,7 +54,9 @@ Phases, each of which exits non-zero on failure:
    twice: on the main path's fleet, and at bench.py's XL point, 1,048,576
    chips x 360 samples in 65,536 slices, built on the card with a seeded
    torch.Generator, whose qc, qu and f32 verdicts and both kernels are
-   checked first;
+   checked first. Then both designs of the int8 kernel for each T of
+   SWEEP_TIMING_T at 32,768, 131,072 and 1,048,576 chips, warm and cold,
+   and whether the row design was the faster wherever the plan takes it;
 5. the streaming window at full width, K = 12 chunks of 6 new samples a
    cycle, 14 cycles (the ring wraps): each cycle's evaluate_window_qc and
    _qu must equal evaluate_fleet_qc over the last <= 12 chunks and the
@@ -74,7 +81,9 @@ Phases, each of which exits non-zero on failure:
    name and power limit.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-per path of phases 3 and 5-7 and its XL times under "xl"; the line before
+per path of phases 3 and 5-7 and its XL times under "xl" (the int8 kernel
+also its launches by design in phases 3, 5 and 6, its T = 12 times under
+"window" and its sweep under "design_sweep"); the line before
 it is {"end_to_end": {...}}, phase 4's end-to-end times at both sizes; the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -86,6 +95,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,7 +119,9 @@ from tpu_pruner_torch.policy import (
     params_array, quantize_params, quantize_samples, quantize_samples_device, reset_launches,
     shard_bounds, slice_bounds, update_window, update_window_)
 from tpu_pruner_torch.policy.engine import normalize_inputs, normalize_inputs_q
-from tpu_pruner_torch.policy.kernels import _plan_q, _sm_count
+from tpu_pruner_torch.policy.kernels import (
+    _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES, PlanRows, _choose_plan_q, _launch_q, _plan_q,
+    _plan_q_rows, _sm_count)
 from tpu_pruner_torch.policy.sharded import run_local, run_stream_local
 
 CHIPS, SAMPLES, SLICES = 131072, 360, 8192
@@ -117,6 +129,7 @@ CPS = CHIPS // SLICES  # the example fleet is uniform: 16 chips a slice
 XL_CHIPS, XL_SLICES = 1048576, 65536  # bench.py's XL point, 16 chips a slice too
 WINDOW_CHUNKS, CHUNK_SAMPLES, STREAM_CYCLES = 12, 6, 14  # the daemon's window shape
 DRYRUN_RANKS = 4
+DRYRUN_CHIPS = CHIPS // DRYRUN_RANKS  # the dry run's rows a rank
 # H100 SXM published peaks (NVIDIA data sheet) at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12  # f32 outside the tensor cores
@@ -129,7 +142,10 @@ REPLACES = {
     "chip_pass_q": "tpu_pruner/policy/pallas_engine.py:104",
 }
 SOURCE = "tpu_pruner_torch/policy/csrc/chip_pass.cu"
-KERNEL_SYMBOLS = {"chip_pass": "chip_pass_kernel", "chip_pass_q": "chip_pass_q_kernel"}
+KERNEL_SYMBOLS = {"chip_pass": "chip_pass_kernel", "chip_pass_q": "chip_pass_q_kernel",
+                  f"chip_pass_q, row design, T={WINDOW_CHUNKS}":
+                  f"chip_pass_q_rows_kernelILi{WINDOW_CHUNKS}E"}
+ROWS_SYMBOL = re.compile(r"chip_pass_q_rows_kernelILi(\d+)E")
 FLUSH_BYTES = 256 * 2**20  # > 5x the H100's 50 MB L2
 
 
@@ -248,6 +264,80 @@ def phase_int8_edges(dev) -> int:
     log(f"phase 2: chip_pass_q equals its plain version on {cases + 1} edge layouts "
         f"x {len(INT8_PARAMS)} parameter sets")
     return err
+
+
+# Phase 2's sweep of the int8 pass's two designs: short rows and long, on
+# either side of each limit of the row design (T up to 64, at most 5 vectors
+# of each array a thread, not 5: 5, 9, 36 and 60 are outside), ragged and full-width
+# chip counts (32,768 the dry run's rows a rank), and bases off a 16-byte
+# boundary; then the two sides of its 16 MiB limit at T = 64.
+SWEEP_T = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 16, 20, 24, 31, 32, 33, 36, 40, 48, 60,
+           64, 65)
+SWEEP_C = (1, 3, 4, 5, 131, 4097, 32768, 131072)
+BYTES_EDGE = ((_Q_ROWS_MAX_BYTES // 64, 64), (_Q_ROWS_MAX_BYTES // 64 + 1, 64))
+
+
+def rows_taken(C: int, T: int) -> bool:
+    """Whether the plan takes the row design for aligned [C, T] inputs."""
+    return T in _Q_ROWS_T and C * T <= _Q_ROWS_MAX_BYTES
+
+
+def sweep_layouts(C: int) -> list:
+    """(tc, hbm, age) byte offsets of the sweep's views: each offset of tc
+    (all 16 up to 4,097 chips, 0 and 1 above) with hbm elsewhere, then hbm
+    alone and the ages alone off a 16-byte boundary."""
+    offsets = range(16) if C <= 4097 else (0, 1)
+    return [(k, 7 * k % 16, 0) for k in offsets] + [(0, 8, 0), (0, 0, 4)]
+
+
+def int8_design_cases(dev, T: int, C: int, rng) -> dict:
+    """chip_pass_q against its plain version on one (C, T) fleet in every
+    layout of sweep_layouts: bit-equal verdicts, and each launch in the design
+    that the plan promises (rows when rows_taken(C, T) and every base is on
+    a 16-byte boundary, else tiles). Returns the launches by design."""
+    tc, hbm, age = int8_edge_fleet(rng, C, T)
+    src = [torch.from_numpy(x).to(dev).view(-1) for x in (tc, hbm)]
+    flat = [torch.empty(C * T + 16, dtype=torch.int8, device=dev) for _ in src]
+    ages = torch.from_numpy(age).to(dev)
+    age_flat = torch.empty(C + 1, device=dev)
+    age_flat[1:] = ages
+    took = {"rows": 0, "tiles": 0}
+    for i, (k_tc, k_hbm, k_age) in enumerate(sweep_layouts(C)):
+        views = []
+        for buf, x, k in zip(flat, src, (k_tc, k_hbm)):
+            views.append(buf[k:k + C * T].view(C, T))
+            views[-1].view(-1).copy_(x)
+        age_v = age_flat[k_age // 4:k_age // 4 + C] if k_age else ages
+        params_q = torch.from_numpy(
+            quantize_params(np.array(INT8_PARAMS[i % len(INT8_PARAMS)], np.float32))).to(dev)
+        want_design = "rows" if rows_taken(C, T) and not (k_tc or k_hbm or k_age) else "tiles"
+        before = dict(DESIGN_LAUNCHES)
+        got = chip_pass_q(*views, age_v, params_q)
+        design = [d for d in DESIGN_LAUNCHES if DESIGN_LAUNCHES[d] != before[d]]
+        what = f"T={T}, C={C}, offsets (tc, hbm, age) {(k_tc, k_hbm, k_age)}"
+        check(design == [want_design], f"chip_pass_q took {design} for {what}, "
+              f"expected {want_design}")
+        want = chip_pass_q_plain(*views, age_v, params_q)
+        check(torch.equal(got, want), f"chip_pass_q != plain for {what}: "
+              f"{int((got != want).sum())} chips differ")
+        took[want_design] += 1
+    return took
+
+
+def phase_int8_designs(dev) -> None:
+    rng = np.random.default_rng(8765)
+    t0 = time.perf_counter()
+    took = {"rows": 0, "tiles": 0}
+    for C, T in [(C, T) for T in SWEEP_T for C in SWEEP_C] + list(BYTES_EDGE):
+        for design, n in int8_design_cases(dev, T, C, rng).items():
+            took[design] += n
+    torch.cuda.synchronize()
+    check(took["rows"] > 0 and took["tiles"] > 0, f"the sweep launched {took}")
+    log(f"phase 2: chip_pass_q equals its plain version bit for bit on {sum(took.values())} "
+        f"(C, T, offset) cases, T in {SWEEP_T}, C in {SWEEP_C}, and (C, T) in {BYTES_EDGE}, "
+        f"each in the design its plan promises: {took} launches (the row design at T in "
+        f"{sorted(_Q_ROWS_T)} up to {_Q_ROWS_MAX_BYTES} bytes an array), "
+        f"{time.perf_counter() - t0:.3f} s")
 
 
 INPUT_SLICES = 64
@@ -534,13 +624,20 @@ def phase_adversarial(dev) -> dict:
     return err
 
 
+DESIGNS_BY_PATH = {}  # chip_pass_q's launches by design, per counted path
+
+
 def counted(by_path: dict, path: str, run):
     """run() with the kernel counts zeroed just before it and read just after;
-    the counts are recorded under path."""
+    the counts are recorded under path, the int8 pass's designs under path in
+    DESIGNS_BY_PATH (added up over repeated runs of a path)."""
     reset_launches()
     out = run()
     torch.cuda.synchronize()
     by_path[path] = dict(LAUNCHES)
+    seen = DESIGNS_BY_PATH.setdefault(path, {"rows": 0, "tiles": 0})
+    for design, n in DESIGN_LAUNCHES.items():
+        seen[design] += n
     return out
 
 
@@ -787,25 +884,15 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes; "
             f"{bound_ms / ms:.3f} of the bound warm, {bound_ms / ms_cold:.3f} cold)")
 
-    # the streaming window's shape: a full ring of 12 chunk maxima per chip
+    # the streaming window's shape: a full ring of 12 chunk maxima per chip,
+    # both designs of the int8 pass, also on the dry run's 32,768 rows a rank
     tc_new, hbm_new = tc_q[:, :CHUNK_SAMPLES].contiguous(), hbm_q[:, :CHUNK_SAMPLES].contiguous()
     state = init_window(C, WINDOW_CHUNKS, device=tc.device)
     for _ in range(WINDOW_CHUNKS):
         state = update_window_(state, tc_new, hbm_new)
-    ring_bytes = sum(x.nbytes for x in (state[0], state[1], age, parr_q)) + C
-    ring_args = (state[0], state[1], age, parr_q)
-    ring_ms = time_ms(lambda: chip_pass_q(*ring_args), 200)
-    ring_cold = time_ms(lambda: chip_pass_q(*ring_args), 200, flush)
-    ring_plain = time_ms(lambda: chip_pass_q_plain(*ring_args), 20)
-    ring_bound = ring_bytes / HBM_BYTES_PER_S * 1e3
-    plan = _plan_q(C, WINDOW_CHUNKS, _sm_count(tc.device))
-    rows["chip_pass_q"]["window"] = {"T": WINDOW_CHUNKS, "ms": ring_ms, "ms_cold": ring_cold,
-                                     "plain_ms": ring_plain, "bound_ms": ring_bound,
-                                     "bytes": ring_bytes, "plan": plan._asdict()}
-    log(f"phase 4: {at} chip_pass_q at T={WINDOW_CHUNKS}: kernel {ring_ms:.4f} ms warm, "
-        f"{ring_cold:.4f} ms cold, plain {ring_plain:.4f} ms, bound {ring_bound:.4f} ms "
-        f"({ring_bytes} bytes; {ring_bound / ring_ms:.3f} of the bound warm, "
-        f"{ring_bound / ring_cold:.3f} cold; plan {plan})")
+    for n in (C, DRYRUN_CHIPS) if C == CHIPS else (C,):
+        rows["chip_pass_q"]["window" if n == C else f"window_{n}"] = window_timing(
+            (state[0][:n], state[1][:n], age[:n], parr_q), flush)
 
     bounds = slice_bounds(slice_id, num_slices, device=tc.device)
     e2e = {
@@ -828,6 +915,78 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
     amax_ms = time_ms(lambda: torch.amax(tc, 1), 50)
     log(f"context (not a port of either kernel): {at} torch.amax(tc, 1) {amax_ms:.4f} ms")
     return rows, end_to_end
+
+
+def design_times(args, flush: torch.Tensor) -> dict:
+    """Warm and cold times of each design of tp_chip_pass_q on args (tc_q,
+    hbm_q, age, params_q: CUDA tensors on 16-byte boundaries), each first
+    held against the plain version; the row design where it has a kernel."""
+    C, T = args[0].shape
+    sm = _sm_count(args[0].device)
+    plans = {"tiles": _plan_q(C, T, sm)}
+    if T in _Q_ROWS_T:
+        plans["rows"] = _plan_q_rows(C, T)
+    want = chip_pass_q_plain(*args)
+    times = {}
+    for design, plan in plans.items():
+        check(torch.equal(_launch_q(*args, plan).view(torch.bool), want),
+              f"the {design} design differs from the plain version at {C}x{T}")
+        times[design] = {"ms": time_ms(lambda plan=plan: _launch_q(*args, plan), 200),
+                         "ms_cold": time_ms(lambda plan=plan: _launch_q(*args, plan), 200, flush),
+                         "plan": plan._asdict()}
+    return times
+
+
+def window_timing(args, flush: torch.Tensor) -> dict:
+    """chip_pass_q on a window ring: both designs warm and cold against the
+    bound, the plain version, and which design the plan takes."""
+    C, T = args[0].shape
+    nbytes = sum(x.nbytes for x in args) + C
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    plan = _choose_plan_q(C, T, _sm_count(args[0].device), aligned=True)
+    chosen = "rows" if isinstance(plan, PlanRows) else "tiles"
+    designs = design_times(args, flush)
+    plain_ms = time_ms(lambda: chip_pass_q_plain(*args), 20)
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), 200)  # an empty kernel, timed alike
+    for design, t in designs.items():
+        log(f"phase 4: {C}x{T} chip_pass_q, {design} design"
+            f"{' (the plan)' if design == chosen else ''}: {t['ms']:.4f} ms warm, "
+            f"{t['ms_cold']:.4f} ms cold, bound {bound:.4f} ms ({nbytes} bytes; "
+            f"{bound / t['ms']:.3f} of the bound warm, {bound / t['ms_cold']:.3f} cold); "
+            f"plan {t['plan']}")
+    log(f"phase 4: {C}x{T} chip_pass_q plain {plain_ms:.4f} ms; an empty kernel "
+        f"{floor_ms:.4f} ms")
+    return {"T": T, "design": chosen, "ms": designs[chosen]["ms"],
+            "ms_cold": designs[chosen]["ms_cold"], "plain_ms": plain_ms, "bound_ms": bound,
+            "bytes": nbytes, "launch_floor_ms": floor_ms, "plan": plan._asdict(),
+            "designs": designs}
+
+
+def design_sweep(dev, C: int, flush: torch.Tensor) -> dict:
+    """Both designs of tp_chip_pass_q at C chips for each T that has a row
+    kernel, warm and cold, on seeded samples drawn on the card; and the
+    shapes where the plan takes the row design and it was not the faster."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C)
+    age = torch.full((C,), 7200.0, device=dev)
+    params_q = torch.tensor([2100.0, 1.0], device=dev)
+    by_t = {}
+    for T in sorted(_Q_ROWS_T):
+        tc = torch.randint(-1, 3, (C, T), generator=gen, device=dev).to(torch.int8)
+        hbm = torch.randint(-1, 2, (C, T), generator=gen, device=dev).to(torch.int8)
+        by_t[T] = {d: [t["ms"], t["ms_cold"]]
+                   for d, t in design_times((tc, hbm, age, params_q), flush).items()}
+        del tc, hbm
+    slower = {when: [T for T in by_t if rows_taken(C, T)
+                     and by_t[T]["rows"][i] >= by_t[T]["tiles"][i]]
+              for i, when in enumerate(("warm", "cold"))}
+    log(f"phase 4: {C} chips, chip_pass_q by T, ms warm/cold: " + "; ".join(
+        f"T={T} " + ", ".join(f"{d} {w:.4f}/{c:.4f}" for d, (w, c) in t.items())
+        for T, t in by_t.items()))
+    log(f"phase 4: {C} chips: the plan takes the row design at T in "
+        f"{[T for T in by_t if rows_taken(C, T)]}; of these it was not the faster at "
+        f"{slower}")
+    return {"by_T": by_t, "rows_not_faster_where_taken": slower}
 
 
 def xl_fleet(dev):
@@ -1086,6 +1245,20 @@ def ptxas_report(proc: subprocess.Popen) -> None:
         info = [line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4]
                 if "spill" in line or "Used" in line]
         log(f"phase 1: {name}: {'; '.join(info)}")
+    regs, spilled = {}, []
+    for i, line in enumerate(lines):
+        m = ROWS_SYMBOL.search(line) if "Compiling entry function" in line else None
+        if m:
+            props = " ".join(lines[i + 1:i + 4])
+            regs[int(m.group(1))] = int(re.search(r"Used (\d+) registers", props).group(1))
+            if not re.search(r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                             props):
+                spilled.append(int(m.group(1)))
+    check(sorted(regs) == sorted(_Q_ROWS_T),
+          f"ptxas reported row-design kernels for T in {sorted(regs)}, the plan has {_Q_ROWS_T}")
+    log(f"phase 1: chip_pass_q, row design, T in {sorted(_Q_ROWS_T)}: "
+        f"{min(regs.values())}-{max(regs.values())} registers "
+        f"(by T: {regs}); stack frame or spills at T in {sorted(spilled)}")
 
 
 def main() -> int:
@@ -1115,6 +1288,7 @@ def main() -> int:
 
     err = phase_adversarial(dev)
     err["chip_pass_q"] = max(err["chip_pass_q"], phase_int8_edges(dev))
+    phase_int8_designs(dev)
     input_err = phase_engine_inputs(dev)
     err = {name: max(e, input_err) for name, e in err.items()}
     by_path = {}
@@ -1129,6 +1303,8 @@ def main() -> int:
                      if k not in ("name", "route", "source", "replaces", "library_ms")}
     del xl_rows
     torch.cuda.empty_cache()
+    rows["chip_pass_q"]["design_sweep"] = {
+        n: design_sweep(dev, n, flush) for n in (DRYRUN_CHIPS, CHIPS, XL_CHIPS)}
     stream, ring_err = phase_streaming(dev, by_path)
     phase_sharded_one_rank(dev, by_path, inputs, expected, q, stream)
     phase_dryrun(by_path)
@@ -1138,6 +1314,12 @@ def main() -> int:
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items() if c[name]}
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] > 0, f"{name} was never launched on the main path")
+    designs = {d: sum(c[d] for c in DESIGNS_BY_PATH.values()) for d in DESIGN_LAUNCHES}
+    rows["chip_pass_q"]["launches_by_design"] = designs
+    check(all(designs.values()), f"both designs of chip_pass_q must run on the main path "
+          f"(phases 3, 5 and 6): {designs}")
+    log(f"chip_pass_q launches by design in phases 3, 5 and 6: {designs} "
+        f"({ {p: c for p, c in DESIGNS_BY_PATH.items() if c['rows']} } took the row design)")
     print(json.dumps({"end_to_end": {f"{CHIPS} chips": end_to_end,
                                      f"{XL_CHIPS} chips": xl_end_to_end}}))
     print(json.dumps({"kernels": list(rows.values())}))

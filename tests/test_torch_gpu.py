@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (INT8_LAYOUTS, INT8_PARAMS, adversarial_fleet, engine_input_check,
-                        input_cases, int8_edge_fleet, int8_on)
+from chip_smoke import (INT8_LAYOUTS, INT8_PARAMS, SWEEP_C, SWEEP_T, adversarial_fleet,
+                        engine_input_check, input_cases, int8_design_cases, int8_edge_fleet,
+                        int8_on)
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
+from tpu_pruner_torch.policy import kernels
 
 PARAMS = [(2100.0, 0.05), (2100.0, float("inf")), (0.0, 1e-40), (2e-40, 0.5)]
 INPUT_CASES = input_cases(5)
@@ -95,6 +97,20 @@ def test_chip_pass_q_full_width(cuda, layout):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T", SWEEP_T)
+def test_chip_pass_q_design_sweep(cuda, T):
+    """chip_smoke.py phase 2's sweep at one T: every C of the sweep, bases
+    at every offset (0 and 1 above 4,097 chips), bit-equal to the plain
+    version in the design the plan promises; short rows take both designs."""
+    took = {"rows": 0, "tiles": 0}
+    for C in SWEEP_C:
+        for design, n in int8_design_cases(cuda, T, C, np.random.default_rng(T * 31 + C)).items():
+            took[design] += n
+    torch.cuda.synchronize()
+    assert took["tiles"] > 0 and (took["rows"] > 0) == (T in kernels._Q_ROWS_T)
+
+
+@pytest.mark.gpu
 def test_fleet_on_card_matches_cpu(cuda):
     gpu_inputs, expected = tp.make_example_fleet(4096, 64, 256, idle_fraction=0.5,
                                                  device=cuda)
@@ -125,6 +141,10 @@ def test_wrappers_skip_launch_on_empty_fleet(cuda):
     out = tp.chip_pass(empty, empty, empty.bool(), torch.empty(0, device=cuda),
                        torch.tensor([1.0, 2.0], device=cuda))
     assert out.shape == (0,) and tp.LAUNCHES == before
+    empty_q = torch.empty((0, 12), dtype=torch.int8, device=cuda)
+    out = tp.chip_pass_q(empty_q, empty_q, torch.empty(0, device=cuda),
+                         torch.tensor([1.0, 2.0], device=cuda))
+    assert out.shape == (0,) and out.dtype == torch.bool and tp.LAUNCHES == before
 
 
 def test_creating_tensors_without_a_card_raises():

@@ -6,6 +6,10 @@ chip pass runs its plain PyTorch version on CPU tensors. Every output is a
 boolean mask or int8 bytes, so the tolerance is exact equality.
 """
 
+import math
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -425,3 +429,188 @@ def test_plan_q_parts_cover_each_row_once(num_chips, T):
 
 def test_plan_q_empty_fleet_has_no_blocks():
     assert kernels._plan_q(0, 360, 132).grid == 0
+
+
+# ── the int8 kernel's row design for short rows (plan and arithmetic) ─────
+
+def test_rows_design_constants_agree_with_the_kernels():
+    """_Q_ROWS_T is the list of row lengths chip_pass.cu instantiates
+    (RowsT): T up to 64 whose group is at most 5 vectors of each array,
+    but not 5; _Q_ROWS_THREADS is its block size (kRowsThreads)."""
+    src = (Path(kernels.__file__).parent / "csrc" / "chip_pass.cu").read_text()
+    listed = re.search(r"using RowsT = std::integer_sequence<int, ([\d, ]+)>;", src).group(1)
+    assert sorted(kernels._Q_ROWS_T) == [int(t) for t in listed.split(",")]
+    assert kernels._Q_ROWS_T == {T for T in range(1, 65) if T // math.gcd(T, 16) <= 5} - {5}
+    threads = re.search(r"constexpr int kRowsThreads = (\d+);", src).group(1)
+    assert kernels._Q_ROWS_THREADS == int(threads)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("num_chips", [1, 5, 32768, 131072, 262144, 262145, 1048576])
+def test_choose_plan_q_takes_row_design_where_intended(num_chips, aligned):
+    """The row design exactly for the row lengths of _Q_ROWS_T, up to
+    _Q_ROWS_MAX_BYTES an array, on 16-byte aligned inputs; the tile design
+    for every other launch."""
+    for T in range(1, 400):
+        plan = kernels._choose_plan_q(num_chips, T, 132, aligned)
+        if aligned and T in kernels._Q_ROWS_T and num_chips * T <= 16 * 2**20:
+            assert plan == kernels._plan_q_rows(num_chips, T)
+        else:
+            assert plan == kernels._plan_q(num_chips, T, 132)
+    window = kernels._choose_plan_q(num_chips, 12, 132, aligned)  # the daemon's default
+    assert isinstance(window, kernels.PlanRows) == (aligned and num_chips <= 1398101)
+
+
+@pytest.mark.parametrize("num_chips", [0, 1, 3, 4, 5, 131, 4097, 32768, 131072, 1048576])
+def test_plan_q_rows_invariants(num_chips):
+    """Each thread owns the fewest rows whose bytes are whole 16-byte
+    vectors, and the grid has a block for every group of rows and no block
+    without one (what rows_plan_ok checks in C)."""
+    for T in sorted(kernels._Q_ROWS_T):
+        p = kernels._plan_q_rows(num_chips, T)
+        g = p.rows_per_thread
+        assert g * T % 16 == 0 and all(k * T % 16 for k in range(1, g))
+        assert g in (1, 2, 4, 8, 16) and g * T // 16 <= 5
+        per_block = kernels._Q_ROWS_THREADS * g
+        if num_chips:
+            assert (p.grid - 1) * per_block < num_chips <= p.grid * per_block
+        else:
+            assert p.grid == 0
+
+
+def rows_design_map(C: int, T: int, plan) -> tuple:
+    """The row design's walk, replayed from the kernel's arithmetic: for each
+    thread with rows, its first row, whether its group is whole, and per
+    whole group the (row, byte) that each byte of its vectors folds into."""
+    g = plan.rows_per_thread
+    group = np.arange(plan.grid * kernels._Q_ROWS_THREADS, dtype=np.int64)
+    row0 = group * g
+    row0 = row0[row0 < C]
+    whole = row0 + g <= C
+    # chip_pass.cu row_peak: row R folds words R*T/4 .. (R*T+T-1)/4, of each
+    # word the bytes [max(R*T - 4k, 0), min(R*T + T - 4k, 4))
+    folds = []
+    for R in range(g):
+        for k in range(R * T // 4, (R * T + T - 1) // 4 + 1):
+            lo, hi = max(R * T - 4 * k, 0), min(R * T + T - 4 * k, 4)
+            folds += [(R, 4 * k + b) for b in range(lo, hi)]
+    return row0, whole, folds
+
+
+@pytest.mark.parametrize("T", sorted(kernels._Q_ROWS_T))
+def test_rows_design_covers_each_row_once(T):
+    """For every (C, T) of chip_smoke.py's sweep: each byte of a whole group's
+    vectors folds into exactly the row it belongs to, the groups and the
+    ragged last one cover every row once, loads stay inside the tensors, and
+    the vector, age and verdict accesses are aligned."""
+    for C in (1, 3, 4, 5, 131, 4097, 32768, 131072):
+        plan = kernels._plan_q_rows(C, T)
+        g = plan.rows_per_thread
+        row0, whole, folds = rows_design_map(C, T, plan)
+        assert sorted(b for _, b in folds) == list(range(g * T))
+        assert all(R == b // T for R, b in folds)
+        rows = np.zeros(C, np.int64)
+        for r0, w in zip(row0, whole):
+            rows[r0:r0 + g if w else C] += 1
+        np.testing.assert_array_equal(rows, 1)
+        assert whole.sum() == C // g and len(row0) == -(-C // g)
+        last = row0[whole][-1] if whole.any() else None
+        if last is not None:
+            assert (last + g) * T <= C * T  # the last vector read ends inside
+        assert np.all(row0 * T % 16 == 0) and np.all(row0 * 4 % min(16, 4 * g) == 0)
+        assert np.all(row0 % g == 0)  # the verdict store of g bytes is g-aligned
+
+
+def emulate_rows_design(tc_q, hbm_q, age, params_q, plan) -> np.ndarray:
+    """chip_pass.cu's row design on numpy: the whole groups' words folded
+    with max.s16x2 and the edge masks of row_peak, the ragged group bytewise,
+    and verdict_q; one uint8 verdict per chip."""
+    C, T = tc_q.shape
+    g = plan.rows_per_thread
+    lookback, cutoff = (float(x) if abs(x) >= 1.1754944e-38 else 0.0
+                        for x in params_q.astype(np.float32))
+    ages = np.where(np.abs(age) < 1.1754944e-38, 0, age).astype(np.float32)
+
+    def max_s16x2(a, b):
+        lo = np.maximum(a.astype(np.uint16).view(np.int16), b.astype(np.uint16).view(np.int16))
+        hi = np.maximum((a >> 16).astype(np.uint16).view(np.int16),
+                        (b >> 16).astype(np.uint16).view(np.int16))
+        return lo.view(np.uint16).astype(np.uint32) | hi.view(np.uint16).astype(np.uint32) << 16
+
+    def fold(acc, w, lo, hi):
+        keep = np.uint32((0xFFFFFFFF << (8 * lo)) & (0xFFFFFFFF >> (8 * (4 - hi))))
+        w = (w & keep) | (np.uint32(0x80808080) & ~keep)
+        acc = max_s16x2(acc, w & np.uint32(0xFF00FF00))
+        return max_s16x2(acc, (w << np.uint32(8)) & np.uint32(0xFF00FF00))
+
+    def peaks(x, n_whole):
+        words = np.ascontiguousarray(x[:n_whole * g]).reshape(-1).view(np.uint32)
+        words = words.reshape(n_whole, g * T // 4)
+        out = np.empty((n_whole, g), np.int64)
+        for R in range(g):
+            acc = np.full(n_whole, 0x80008000, np.uint32)
+            for k in range(R * T // 4, (R * T + T - 1) // 4 + 1):
+                acc = fold(acc, words[:, k], max(R * T - 4 * k, 0), min(R * T + T - 4 * k, 4))
+            out[:, R] = np.maximum(acc.astype(np.uint16).view(np.int16),
+                                   (acc >> 16).astype(np.uint16).view(np.int16)) >> 8
+        return out.reshape(-1)
+
+    n_whole = C // g
+    peak_tc = np.concatenate([peaks(tc_q, n_whole), tc_q[n_whole * g:].max(axis=1)])
+    peak_hbm = np.concatenate([peaks(hbm_q, n_whole), hbm_q[n_whole * g:].max(axis=1)])
+    idle = peak_tc == 0
+    hbm_active = peak_hbm.astype(np.float32) >= np.float32(cutoff)
+    return (idle & ~hbm_active & (ages >= np.float32(lookback))).astype(np.uint8)
+
+
+@pytest.mark.parametrize("T", sorted(kernels._Q_ROWS_T))
+def test_rows_design_arithmetic_matches_plain(T):
+    """The row design's bit arithmetic, emulated, equals chip_pass_q_plain on
+    rows salted with -128, -1, 0 and 127 and on ragged chip counts."""
+    rng = np.random.default_rng(T)
+    for C in (1, 5, 131, 1003):
+        tc = np.where(rng.uniform(size=(C, T)) < 0.3, -1, 0).astype(np.int8)
+        busy = rng.uniform(size=C) < 0.4
+        tc[busy] = rng.integers(-1, 128, size=(int(busy.sum()), T))
+        hbm = rng.integers(-1, 8, size=(C, T)).astype(np.int8)
+        for x in (tc, hbm):
+            x[rng.uniform(size=C) < 0.05] = -128
+            x[rng.uniform(size=C) < 0.05] = 127
+            salt = rng.uniform(size=(C, T)) < 0.02
+            x[salt] = rng.choice(np.array([-128, 127, -1, 0], np.int8), size=int(salt.sum()))
+        age = rng.uniform(0, 4000, size=C).astype(np.float32)
+        for params in ((2100.0, 0.05), (2100.0, np.inf), (0.0, 1e-40), (2e-40, 0.5)):
+            params_q = tp.quantize_params(np.array(params, np.float32))
+            got = emulate_rows_design(tc, hbm, age, params_q, kernels._plan_q_rows(C, T))
+            want = tp.chip_pass_q_plain(*to_torch(tc, hbm, age, params_q))
+            np.testing.assert_array_equal(got, want.numpy().astype(np.uint8), err_msg=str(params))
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_misaligned_base_takes_tile_design(offset):
+    """A view whose data pointer is off a 16-byte boundary, in any of the
+    three inputs, makes chip_pass_q launch the tile design; aligned inputs
+    of short rows the row design."""
+    C, T = 1003, 12
+    flat = torch.zeros(C * T + 32, dtype=torch.int8)
+    base = (-flat.data_ptr()) % 16  # flat[base:] starts on a 16-byte boundary
+    tc = flat[base + offset:base + offset + C * T].view(C, T)
+    hbm = torch.zeros(C, T, dtype=torch.int8)
+    age_flat = torch.zeros(C + 8)
+    age = age_flat[(-age_flat.data_ptr()) % 16 // 4:][:C]
+    age_off = age_flat[(-age_flat.data_ptr()) % 16 // 4 + 1:][:C]
+    assert hbm.data_ptr() % 16 == 0 and age.data_ptr() % 16 == 0
+    rows = kernels._plan_q_rows(C, T)
+    tiles = kernels._plan_q(C, T, 132)
+    assert kernels._plan_for(tc, hbm, age, 132) == (rows if offset == 0 else tiles)
+    assert kernels._plan_for(hbm, tc, age, 132) == (rows if offset == 0 else tiles)
+    assert kernels._plan_for(hbm, hbm, age_off, 132) == tiles
+
+
+def test_chip_pass_q_empty_fleet_launches_nothing():
+    tp.reset_launches()
+    empty = torch.empty((0, 12), dtype=torch.int8)
+    out = tp.chip_pass_q(empty, empty, torch.empty(0), torch.tensor([2100.0, 1.0]))
+    assert out.shape == (0,) and out.dtype == torch.bool
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0}
+    assert kernels.DESIGN_LAUNCHES == {"rows": 0, "tiles": 0}

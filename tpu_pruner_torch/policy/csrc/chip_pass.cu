@@ -16,28 +16,37 @@
 // over the samples with coalesced scalar loads, a shuffle reduction across
 // the warp, and lane 0 applying the gates.
 //
-// tp_chip_pass_q is built against the latency limit of such a stream. One
-// warp per 360-byte row with 1-byte lane loads keeps only a few KB in flight
-// per SM, where Little's law asks for ~15 KB (3.35 TB/s x ~0.6 us over 132
-// SMs); that design reached 48% of its bound on the H100. So the int8 pass:
-//   - cuts the fleet into flat tiles of R rows, R a multiple of 16, so a
+// tp_chip_pass_q has two designs; kernels._choose_plan_q picks one per
+// launch. The row design takes short rows (T in RowsT below: T <= 64 and at
+// most 5 vectors of each array a thread) of at most 16 MiB an array whose
+// three inputs start on 16-byte boundaries; the tile design takes the rest,
+// views off such a boundary included. That is where the row design
+// measured faster on the H100 with its inputs in L2, as the streaming
+// window finds its ring (PERF.md gives both designs warm and cold).
+//
+// The tile design is built against the latency limit of a long-row
+// stream. One warp per 360-byte row with 1-byte lane loads keeps only a few
+// KB in flight per SM, where Little's law asks for ~15 KB (3.35 TB/s x ~0.6
+// us over 132 SMs); that design reached 48% of its bound on the H100. So:
+//   - it cuts the fleet into flat tiles of R rows, R a multiple of 16, so a
 //     tile's byte range [r0*T, (r0+R)*T) starts on a 16-byte boundary for
 //     every T (relative to the array's base); rows are not the unit of copy;
-//   - has one producer warp copy each array's tile, and the tile's ages, into
+//   - one producer warp copies each array's tile, and the tile's ages, into
 //     shared memory with Hopper's 1-D bulk copy (cp.async.bulk ...
 //     mbarrier::complete_tx, marked evict-first in L2), and four consumer
 //     warps reduce it once its mbarrier completes: one instruction moves a
 //     whole tile, and the many resident blocks of an SM (each ~12 KB at
 //     T=360) keep far more than 15 KB in flight;
-//   - gives each block one tile (a grid of ceil(C/R) blocks), so the
-//     hardware scheduler balances tiles across SMs; on the H100 this beat a
-//     persistent grid whose blocks walk a ring of tiles (PERF.md). A
-//     block walks its tile's parts through a ring of stages with a full and
-//     an empty mbarrier each, which a row longer than a stage needs;
-//   - reduces from shared memory in 4-byte words with max.s16x2 (two signed
-//     16-bit maxima per instruction, the int8 samples as high bytes),
-//     lanes_per_row lanes to a row; the partial words at a row's edges are
-//     masked, the halves folded as scalars and the lanes by shuffles.
+//   - each block has one tile (a grid of ceil(C/R) blocks), so the hardware
+//     scheduler balances tiles across SMs; on the H100 this beat a
+//     persistent grid whose blocks walk a ring of tiles (PERF.md). A block
+//     walks its tile's parts through a ring of stages with a full and an
+//     empty mbarrier each, which a row longer than a stage needs;
+//   - it reduces from shared memory in 4-byte words with max.s16x2 (two
+//     signed 16-bit maxima per instruction, the int8 samples as high
+//     bytes), lanes_per_row lanes to a row; the partial words at a row's
+//     edges are masked, the halves folded as scalars and the lanes by
+//     shuffles.
 // Edges: a base pointer off a 16-byte boundary (a view such as x[1:]) has its
 // aligned interior copied in bulk and its head and tail (< 16 B each) read
 // with plain loads into the same stage; the last tile is clipped to the rows
@@ -46,6 +55,27 @@
 // byte outside the tensors is read. The launch plan (rows per tile, part
 // size, parts, stages, lanes per row, shared memory, grid) is computed by
 // kernels._plan_q in Python and checked here.
+//
+// The row design is built for the streaming window's ring, T = 12 chunk
+// maxima a chip: 131,072 x 12 is 3.8 MB, one wave of the tile design's
+// 512-row tiles, whose consumers wait for a whole tile before they reduce.
+// The pass is one launch plus one memory round trip, and the row design
+// spends nothing else: no shared memory, no barrier, no producer warp.
+//   - each thread owns G = 16 / gcd(T, 16) consecutive rows, the fewest
+//     whose G*T bytes are whole 16-byte vectors (T = 12: 4 rows, 3 vectors
+//     an array), so a group starts on a 16-byte boundary;
+//   - it issues all its loads before any arithmetic: the vectors of both
+//     arrays (ld.global.nc.v4; L2 prefetch and evict-first hints measured no
+//     faster) and its G ages (one float4 per 4 rows);
+//   - T is a template argument, so each row's words and the masks of the
+//     words it shares with a neighbour are constants, and the folds run
+//     from registers with max.s16x2, which sm_90a runs as a three-input
+//     VIMNMX3 (__vmaxs4 compiled to more instructions);
+//   - it writes its G verdict bytes in one store of G bytes;
+//   - the last group, if ragged, reads the rows that exist byte by byte.
+// The launch plan (rows per thread and grid, at 128 threads a block) is
+// computed by kernels._plan_q_rows and checked here with the inputs'
+// alignment.
 //
 // Numerics follow the reference's XLA semantics exactly, without -ftz or
 // fast math, so each rule is explicit here:
@@ -66,6 +96,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
 
 namespace {
 
@@ -290,6 +321,16 @@ __device__ __forceinline__ int peak_of(uint32_t acc) {
     return max(int(int16_t(acc)), int(int16_t(acc >> 16))) >> 8;
 }
 
+// The verdict of one chip from its two peaks, as both designs apply it.
+__device__ __forceinline__ uint8_t verdict_q(int peak_tc, int peak_hbm, float age,
+                                             float lookback, float cutoff) {
+    // the -1 sentinel makes has_data implicit: peak == 0 needs a valid zero
+    const bool idle = peak_tc == 0;
+    const bool hbm_active = float(peak_hbm) >= cutoff;
+    const bool eligible = flush_subnormal(age) >= lookback;
+    return (idle && !hbm_active && eligible) ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kQThreads)
 chip_pass_q_kernel(const int8_t* __restrict__ tc_q, const int8_t* __restrict__ hbm_q,
                    const float* __restrict__ age, const float* __restrict__ params_q,
@@ -406,11 +447,7 @@ chip_pass_q_kernel(const int8_t* __restrict__ tc_q, const int8_t* __restrict__ h
                     continue;
                 }
             }
-            // the -1 sentinel makes has_data implicit: peak == 0 needs a valid zero
-            const bool idle = peak_tc == 0;
-            const bool hbm_active = float(peak_hbm) >= cutoff;
-            const bool eligible = flush_subnormal(ages[r]) >= lookback;
-            out[w.row0 + r] = (idle && !hbm_active && eligible) ? 1 : 0;
+            out[w.row0 + r] = verdict_q(peak_tc, peak_hbm, ages[r], lookback, cutoff);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[w.stage]);  // this warp is done with the stage
@@ -428,6 +465,166 @@ bool plan_ok(const QPlan& q, int64_t smem_bytes, int64_t grid) {
            q.stages <= kQMaxStages && lanes_pow2 && smem_bytes >= q.stages * stage &&
            smem_bytes <= kQSmemMax && grid <= 0x7fffffff &&
            (grid - 1) * q.rows < q.num_chips && q.num_chips <= grid * q.rows;  // a tile a block
+}
+
+
+// ── int8 pass for short rows: a thread reduces whole rows from registers ────
+
+constexpr int kRowsThreads = 128;  // threads per block (kernels._Q_ROWS_THREADS)
+
+// The row lengths with a kernel (kernels._Q_ROWS_T): T <= 64 whose group is
+// at most 5 vectors of each array, but not 5, whose thread walks 16 rows of
+// 5 vectors. The lengths left out measured slower than the tile design.
+using RowsT = std::integer_sequence<int, 1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24, 32, 40, 48, 64>;
+
+template <int... Ts>
+constexpr bool has_rows_kernel(int T, std::integer_sequence<int, Ts...>) {
+    return ((T == Ts) || ...);
+}
+
+__host__ __device__ constexpr int gcd_int(int a, int b) { return b ? gcd_int(b, a % b) : a; }
+// the rows a thread owns: the fewest whose bytes are whole 16-byte vectors
+__host__ __device__ constexpr int rows_per_thread(int T) { return 16 / gcd_int(T, 16); }
+
+// The peak of row R of a group of T-byte rows held as 4-byte words: the
+// words inside the row fold whole, a word shared with a neighbouring row
+// folds only the row's bytes. R and T are constants, so are the word
+// indices and masks.
+template <int T, int R, int W>
+__device__ __forceinline__ int row_peak(const uint32_t (&w)[W]) {
+    constexpr int first = R * T / 4, last = (R * T + T - 1) / 4;
+    uint32_t acc = kAccInit;
+#pragma unroll
+    for (int k = first; k <= last; ++k) {
+        const int lo = max(R * T - 4 * k, 0), hi = min(R * T + T - 4 * k, 4);
+        acc = lo == 0 && hi == 4 ? fold_word(acc, w[k]) : fold_partial(acc, w[k], lo, hi);
+    }
+    return peak_of(acc);
+}
+
+// The verdicts of a group's rows 0..G-1.
+template <int T, int W, int G, int... Rs>
+__device__ __forceinline__ void group_verdicts(const uint32_t (&wa)[W], const uint32_t (&wb)[W],
+                                               const float (&ages)[G], float lookback,
+                                               float cutoff, uint8_t (&v)[G],
+                                               std::integer_sequence<int, Rs...>) {
+    ((v[Rs] = verdict_q(row_peak<T, Rs>(wa), row_peak<T, Rs>(wb), ages[Rs], lookback, cutoff)),
+     ...);
+}
+
+// G consecutive ages from a 4*G-byte aligned address.
+template <int G>
+__device__ __forceinline__ void load_ages(const float* p, float (&a)[G]) {
+    if constexpr (G % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < G / 4; ++i) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(p) + i);
+            a[4 * i] = x.x, a[4 * i + 1] = x.y, a[4 * i + 2] = x.z, a[4 * i + 3] = x.w;
+        }
+    } else if constexpr (G == 2) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+        a[0] = x.x, a[1] = x.y;
+    } else {
+        a[0] = __ldg(p);
+    }
+}
+
+__device__ __forceinline__ uint32_t pack4(const uint8_t* v) {
+    return v[0] | uint32_t(v[1]) << 8 | uint32_t(v[2]) << 16 | uint32_t(v[3]) << 24;
+}
+
+// G verdict bytes in one store, to a G-byte aligned address.
+template <int G>
+__device__ __forceinline__ void store_verdicts(uint8_t* p, const uint8_t (&v)[G]) {
+    if constexpr (G == 1) {
+        *p = v[0];
+    } else if constexpr (G == 2) {
+        *reinterpret_cast<uint16_t*>(p) = uint16_t(v[0] | v[1] << 8);
+    } else if constexpr (G == 4) {
+        *reinterpret_cast<uint32_t*>(p) = pack4(v);
+    } else if constexpr (G == 8) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(pack4(v), pack4(v + 4));
+    } else {
+        *reinterpret_cast<uint4*>(p) = make_uint4(pack4(v), pack4(v + 4), pack4(v + 8),
+                                                  pack4(v + 12));
+    }
+}
+
+template <int T>
+__global__ void __launch_bounds__(kRowsThreads)
+chip_pass_q_rows_kernel(const int8_t* __restrict__ tc_q, const int8_t* __restrict__ hbm_q,
+                        const float* __restrict__ age, const float* __restrict__ params_q,
+                        uint8_t* __restrict__ out, int64_t num_chips) {
+    constexpr int G = rows_per_thread(T);
+    constexpr int V = G * T / 16;  // 16-byte vectors of each array
+    constexpr int W = 4 * V;       // their 4-byte words
+    const int64_t group = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+    const int64_t row0 = group * G;
+    if (row0 >= num_chips) return;
+    const float lookback = flush_subnormal(__ldg(params_q));
+    const float cutoff = flush_subnormal(__ldg(params_q + 1));
+    if (row0 + G > num_chips) {  // the ragged last group: the rows that exist, bytewise
+        for (int64_t r = row0; r < num_chips; ++r) {
+            int peak_tc = -128, peak_hbm = -128;
+            for (int t = 0; t < T; ++t) {
+                peak_tc = max(peak_tc, int(tc_q[r * T + t]));
+                peak_hbm = max(peak_hbm, int(hbm_q[r * T + t]));
+            }
+            out[r] = verdict_q(peak_tc, peak_hbm, age[r], lookback, cutoff);
+        }
+        return;
+    }
+    // every load before any arithmetic
+    uint32_t wa[W], wb[W];
+    const uint4* va = reinterpret_cast<const uint4*>(tc_q) + group * V;
+    const uint4* vb = reinterpret_cast<const uint4*>(hbm_q) + group * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+        const uint4 x = __ldg(va + v), y = __ldg(vb + v);
+        wa[4 * v] = x.x, wa[4 * v + 1] = x.y, wa[4 * v + 2] = x.z, wa[4 * v + 3] = x.w;
+        wb[4 * v] = y.x, wb[4 * v + 1] = y.y, wb[4 * v + 2] = y.z, wb[4 * v + 3] = y.w;
+    }
+    float ages[G];
+    load_ages(age + row0, ages);
+    uint8_t verdicts[G];
+    group_verdicts<T>(wa, wb, ages, lookback, cutoff, verdicts,
+                      std::make_integer_sequence<int, G>{});
+    store_verdicts(out + row0, verdicts);
+}
+
+struct RowsArgs {
+    const int8_t* tc_q;
+    const int8_t* hbm_q;
+    const float* age;
+    const float* params_q;
+    uint8_t* out;
+    int64_t num_chips;
+};
+
+template <int T>
+void launch_rows_if(int t, const RowsArgs& a, unsigned grid, cudaStream_t stream) {
+    if (t == T)
+        chip_pass_q_rows_kernel<T><<<grid, kRowsThreads, 0, stream>>>(
+            a.tc_q, a.hbm_q, a.age, a.params_q, a.out, a.num_chips);
+}
+
+// Launch the instantiation for T, one of RowsT.
+template <int... Ts>
+void launch_rows(int T, std::integer_sequence<int, Ts...>, const RowsArgs& a, unsigned grid,
+                 cudaStream_t stream) {
+    (launch_rows_if<Ts>(T, a, grid, stream), ...);
+}
+
+bool rows_plan_ok(const RowsArgs& a, int64_t T, int64_t rows, int64_t grid) {
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(a.tc_q) |
+                            reinterpret_cast<uintptr_t>(a.hbm_q) |
+                            reinterpret_cast<uintptr_t>(a.age) |
+                            reinterpret_cast<uintptr_t>(a.out);
+    if (T < 1 || T > 64 || !has_rows_kernel(int(T), RowsT{}) || (bases & 15) != 0)
+        return false;
+    const int64_t per_block = kRowsThreads * rows;
+    return a.num_chips > 0 && rows == rows_per_thread(int(T)) && grid <= 0x7fffffff &&
+           (grid - 1) * per_block < a.num_chips && a.num_chips <= grid * per_block;
 }
 
 }  // namespace
@@ -458,6 +655,20 @@ int tp_chip_pass_q(const void* tc_q, const void* hbm_q, const void* age,
         static_cast<const int8_t*>(tc_q), static_cast<const int8_t*>(hbm_q),
         static_cast<const float*>(age), static_cast<const float*>(params_q),
         static_cast<uint8_t*>(out), q);
+    return int(cudaGetLastError());
+}
+
+// The row design of tp_chip_pass_q; rows (per thread) and grid are
+// kernels.PlanRows in order.
+int tp_chip_pass_q_rows(const void* tc_q, const void* hbm_q, const void* age,
+                        const void* params_q, void* out, int64_t num_chips,
+                        int64_t num_samples, int64_t rows, int64_t grid, void* stream) {
+    const RowsArgs a{static_cast<const int8_t*>(tc_q), static_cast<const int8_t*>(hbm_q),
+                     static_cast<const float*>(age), static_cast<const float*>(params_q),
+                     static_cast<uint8_t*>(out), num_chips};
+    if (!rows_plan_ok(a, num_samples, rows, grid))
+        return int(cudaErrorInvalidValue);
+    launch_rows(int(num_samples), RowsT{}, a, unsigned(grid), static_cast<cudaStream_t>(stream));
     return int(cudaGetLastError());
 }
 

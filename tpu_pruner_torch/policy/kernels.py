@@ -7,7 +7,10 @@ each row to one verdict: a bandwidth-bound pass with no tensor-core work.
 - ``chip_pass`` (f32 samples + bool mask) launches ``tp_chip_pass`` from
   ``csrc/chip_pass.cu``, which replaces ``_chip_kernel``;
 - ``chip_pass_q`` (int8 samples, -1 = invalid) launches ``tp_chip_pass_q``,
-  which replaces ``_chip_kernel_q``.
+  which replaces ``_chip_kernel_q``, in one of two designs that
+  ``_choose_plan_q`` picks: the row design (``tp_chip_pass_q_rows``) for
+  short rows, such as the streaming window's, and the tile design for the
+  rest.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. The plain versions apply the
@@ -16,12 +19,14 @@ subnormals read as zero, NaN propagates into a row's peak, and an ``+inf``
 cutoff rescues only an ``+inf`` HBM sample.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
-its main path went through the kernels; ``reset_launches`` zeroes it.
+its main path went through the kernels, and ``DESIGN_LAUNCHES`` the int8
+pass's launches per design; ``reset_launches`` zeroes both.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -31,11 +36,13 @@ from . import _build
 _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
 LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0}
+DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, DESIGN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
@@ -155,6 +162,41 @@ def _plan_q(num_chips: int, num_samples: int, sm_count: int) -> PlanQ:
                  grid=_cdiv(num_chips, rows))
 
 
+# Launch plan of the row design (tp_chip_pass_q_rows): each thread owns the
+# fewest consecutive rows whose bytes are whole 16-byte vectors and reduces
+# them from registers. csrc/chip_pass.cu has a kernel (RowsT) for each row
+# length of _Q_ROWS_T: up to 64 samples, at most 5 vectors of each array a
+# thread, but not 5 (16 rows of 5 vectors a thread). The plan takes it
+# there, up to _Q_ROWS_MAX_BYTES an array: where it measured faster than
+# the tile design on the H100.
+_Q_ROWS_T = frozenset({1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24, 32, 40, 48, 64})
+_Q_ROWS_MAX_BYTES = 16 * 2**20
+_Q_ROWS_THREADS = 128  # a block's threads; kRowsThreads in csrc/chip_pass.cu
+
+
+class PlanRows(NamedTuple):
+    rows_per_thread: int  # 16 / gcd(T, 16): its rows start on a 16-byte boundary
+    grid: int             # blocks, each of _Q_ROWS_THREADS * rows_per_thread rows
+
+
+def _plan_q_rows(num_chips: int, num_samples: int) -> PlanRows:
+    """Launch plan of the row design for a [num_chips, num_samples] fleet."""
+    g = 16 // math.gcd(num_samples, 16)
+    return PlanRows(g, _cdiv(_cdiv(num_chips, g), _Q_ROWS_THREADS))
+
+
+def _choose_plan_q(num_chips: int, num_samples: int, sm_count: int,
+                   aligned: bool) -> PlanQ | PlanRows:
+    """The design of tp_chip_pass_q and its launch plan: the row design for
+    the short rows of _Q_ROWS_T, at most _Q_ROWS_MAX_BYTES an array, when
+    the samples and ages start on 16-byte boundaries (aligned); else the
+    tile design, which also takes views off such a boundary."""
+    if (aligned and num_samples in _Q_ROWS_T
+            and num_chips * num_samples <= _Q_ROWS_MAX_BYTES):
+        return _plan_q_rows(num_chips, num_samples)
+    return _plan_q(num_chips, num_samples, sm_count)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -184,15 +226,33 @@ def chip_pass_q(tc_q, hbm_q, age, params_q) -> torch.Tensor:
                      "params_q": (params_q, torch.float32, (2,))})
     if device.type == "cpu":
         return chip_pass_q_plain(tc_q, hbm_q, age, params_q)
-    out = torch.empty(C, dtype=torch.uint8, device=device)
-    if C:
-        lib = _build.load()
-        plan = _plan_q(C, T, _sm_count(device))
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = lib.tp_chip_pass_q(
-                tc_q.data_ptr(), hbm_q.data_ptr(), age.data_ptr(),
-                params_q.data_ptr(), out.data_ptr(), C, T, *plan, stream)
-        _build.check(status, "tp_chip_pass_q")
-        LAUNCHES["chip_pass_q"] += 1
-    return out.view(torch.bool)
+    if not C:
+        return torch.empty(0, dtype=torch.bool, device=device)
+    plan = _plan_for(tc_q, hbm_q, age, _sm_count(device))
+    return _launch_q(tc_q, hbm_q, age, params_q, plan).view(torch.bool)
+
+
+def _plan_for(tc_q, hbm_q, age, sm_count: int) -> PlanQ | PlanRows:
+    """The plan chip_pass_q launches for these tensors."""
+    C, T = tc_q.shape
+    aligned = all(x.data_ptr() % 16 == 0 for x in (tc_q, hbm_q, age))
+    return _choose_plan_q(C, T, sm_count, aligned)
+
+
+def _launch_q(tc_q, hbm_q, age, params_q, plan: PlanQ | PlanRows) -> torch.Tensor:
+    """tp_chip_pass_q in the design of ``plan`` on CUDA tensors that
+    chip_pass_q has checked (C > 0); returns the uint8[C] verdicts. The C
+    entry point refuses a plan that does not fit the inputs."""
+    C, T = tc_q.shape
+    out = torch.empty(C, dtype=torch.uint8, device=tc_q.device)
+    lib = _build.load()
+    rows = isinstance(plan, PlanRows)
+    entry = lib.tp_chip_pass_q_rows if rows else lib.tp_chip_pass_q
+    with torch.cuda.device(tc_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = entry(tc_q.data_ptr(), hbm_q.data_ptr(), age.data_ptr(), params_q.data_ptr(),
+                       out.data_ptr(), C, T, *plan, stream)
+    _build.check(status, entry.__name__)
+    LAUNCHES["chip_pass_q"] += 1
+    DESIGN_LAUNCHES["rows" if rows else "tiles"] += 1
+    return out
