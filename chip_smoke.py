@@ -7,6 +7,7 @@ Phases, each of which exits non-zero on failure:
    (sm_90a), print each kernel's registers, shared memory and spills
    (a second nvcc with -Xptxas -v, started with the build; the int8 pass's
    row design at T = 12, and its registers and spills over every T it has a
+   kernel for; the f32 pass's group design for each samples-a-lane it has a
    kernel for), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on an adversarial
    fleet (ragged chip counts, T in {1, 12, 31, 360, 361}, all-invalid rows,
@@ -19,7 +20,11 @@ Phases, each of which exits non-zero on failure:
    127, and one full-width 131,072 x 360 view. Then the int8 kernel's two
    designs (SWEEP_T x SWEEP_C, bases at byte offsets 0-15, hbm alone and the
    ages alone off a 16-byte boundary): bit-equal to the plain version, each
-   launch in the design that its plan promises. Then the engine on the inputs
+   launch in the design that its plan promises. Then the f32 kernel's two
+   designs, each forced, on adversarial rows with invalid padding at T in
+   F32_ADVERSARIAL_T, and through its plan on the F32_SWEEP_T x SWEEP_C
+   sweep (bases on and off 16-byte boundaries): bit-equal to the plain
+   version, each launch in the design its plan promises. Then the engine on the inputs
    the reference takes and the kernel wrappers refuse (input_cases: slice
    ids outside [0, S) as int32, int64, int8 and uint8, bf16, f16 and f64
    samples, an integer mask, f64 ages, strided views) through
@@ -34,7 +39,11 @@ Phases, each of which exits non-zero on failure:
    quantize_fleet_inputs + evaluate_fleet_qc, the uniform path
    (assert_uniform_slices + evaluate_fleet_qu: the fleet is 16 chips a
    slice), the analyze evaluation, and the analyze CLI (batch, --shard in a
-   one-rank group, --stream over two cycles); verdicts must equal the
+   one-rank group, --stream over two cycles), then the analyze CLI without
+   --quantize on an audit dump's width, 131,072 chips x 8 samples written
+   in the dump format (every seventh chip's series 1-7 samples long), whose
+   verdicts must also equal evaluate_fleet's on load_fleet's arrays, with
+   its host wall time; verdicts must equal the
    fleet's expected verdicts, each path (counts zeroed just before it, read
    just after) must launch its own kernel exactly once and the other kernel
    never, and each kernel must equal its plain version on the main path's
@@ -56,7 +65,13 @@ Phases, each of which exits non-zero on failure:
    torch.Generator, whose qc, qu and f32 verdicts and both kernels are
    checked first. Then both designs of the int8 kernel for each T of
    SWEEP_TIMING_T at 32,768, 131,072 and 1,048,576 chips, warm and cold,
-   and whether the row design was the faster wherever the plan takes it;
+   and whether the row design was the faster wherever the plan takes it.
+   Then the f32 kernel at the dump's width, 8 samples a chip with padded
+   short series, in each design at the same three sizes, warm and cold,
+   beside its bound, its plain version and an empty kernel;
+   evaluate_fleet_c end to end at 131,072 x 8; and both f32 designs for
+   each T of F32_SWEEP_TIMING_T at the three sizes, and where the plan's
+   design was not the fastest;
 5. the streaming window at full width, K = 12 chunks of 6 new samples a
    cycle, 14 cycles (the ring wraps): each cycle's evaluate_window_qc and
    _qu must equal evaluate_fleet_qc over the last <= 12 chunks and the
@@ -81,9 +96,10 @@ Phases, each of which exits non-zero on failure:
    name and power limit.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-per path of phases 3 and 5-7 and its XL times under "xl" (the int8 kernel
-also its launches by design in phases 3, 5 and 6, its T = 12 times under
-"window" and its sweep under "design_sweep"); the line before
+per path of phases 3 and 5-7, its launches by design in phases 3, 5 and 6
+and its XL times under "xl" (the int8 kernel also its T = 12 times under
+"window" and its sweep under "design_sweep", the f32 kernel its times at
+the dump's width and its sweep under "dump"); the line before
 it is {"end_to_end": {...}}, phase 4's end-to-end times at both sizes; the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -113,15 +129,16 @@ from tpu_pruner_torch.policy import (
     evaluate_fleet_cuda_q, evaluate_fleet_cuda_qc, evaluate_fleet_q, evaluate_fleet_qc,
     evaluate_fleet_qu, evaluate_fleet_sharded, evaluate_fleet_sharded_q,
     evaluate_fleet_sharded_qc, evaluate_fleet_sharded_qu, evaluate_window_qc,
-    evaluate_window_qu, init_window, make_example_fleet, make_sharded_evaluator,
+    evaluate_window_qu, fleet_from_numpy, init_window, make_example_fleet, make_sharded_evaluator,
     make_sharded_evaluator_q,
     make_sharded_evaluator_qc, make_sharded_evaluator_qu, quantize_fleet_inputs,
     params_array, quantize_params, quantize_samples, quantize_samples_device, reset_launches,
     shard_bounds, slice_bounds, update_window, update_window_)
 from tpu_pruner_torch.policy.engine import normalize_inputs, normalize_inputs_q
 from tpu_pruner_torch.policy.kernels import (
-    _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES, PlanRows, _choose_plan_q, _launch_q, _plan_q,
-    _plan_q_rows, _sm_count)
+    _F32_GROUPS_K, _F32_GROUPS_MAX_T, _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES,
+    F32_DESIGN_LAUNCHES, F32_DESIGNS, PlanRows, _choose_plan_f32, _choose_plan_q, _f32_plans,
+    _launch_f32, _launch_q, _plan_q, _plan_q_rows, _sm_count)
 from tpu_pruner_torch.policy.sharded import run_local, run_stream_local
 
 CHIPS, SAMPLES, SLICES = 131072, 360, 8192
@@ -145,7 +162,13 @@ SOURCE = "tpu_pruner_torch/policy/csrc/chip_pass.cu"
 KERNEL_SYMBOLS = {"chip_pass": "chip_pass_kernel", "chip_pass_q": "chip_pass_q_kernel",
                   f"chip_pass_q, row design, T={WINDOW_CHUNKS}":
                   f"chip_pass_q_rows_kernelILi{WINDOW_CHUNKS}E"}
-ROWS_SYMBOL = re.compile(r"chip_pass_q_rows_kernelILi(\d+)E")
+# templated kernels: name -> (symbol pattern, the instantiations the plan uses)
+INSTANTIATIONS = {
+    "chip_pass_q, row design, T": (r"chip_pass_q_rows_kernelILi(\d+)E", _Q_ROWS_T),
+    "chip_pass, group design, samples a lane": (r"chip_pass_groups_kernelILi(\d+)E",
+                                                _F32_GROUPS_K),
+}
+DUMP_SAMPLES = 8  # an audit dump's series: dump.py's 2100 s window at its 300 s step
 FLUSH_BYTES = 256 * 2**20  # > 5x the H100's 50 MB L2
 
 
@@ -338,6 +361,102 @@ def phase_int8_designs(dev) -> None:
         f"each in the design its plan promises: {took} launches (the row design at T in "
         f"{sorted(_Q_ROWS_T)} up to {_Q_ROWS_MAX_BYTES} bytes an array), "
         f"{time.perf_counter() - t0:.3f} s")
+
+
+def f32_edge_fleet(rng, C: int, T: int):
+    """numpy f32 fleet for the f32 kernel's short rows: adversarial_fleet's
+    values (NaN, +-inf, -0.0, +-subnormals, absent series, young pods), and
+    a third of the rows right-aligned behind invalid padding, as
+    analyze.load_fleet writes a dump's shorter series."""
+    tc, hbm, valid, age = adversarial_fleet(rng, C, T)
+    short = rng.uniform(size=C) < 0.3
+    valid[short] &= np.arange(T)[None, :] >= rng.integers(0, T + 1, size=int(short.sum()))[:, None]
+    return tc, hbm, valid, age
+
+
+# The f32 pass's parameter sets: PARAMS of the int8 pass and a negative
+# cutoff, under which an invalid sample's -1 rescues and padding must not.
+F32_PARAMS = INT8_PARAMS + [(2100.0, -5.0)]
+F32_ADVERSARIAL_T = (2, 7, 8, 9, 16, 32, 33)
+# Phase 2's sweep of the f32 pass: every T up to 64, the group design's
+# threshold on either side, and the warp design's 360.
+F32_SWEEP_T = tuple(range(1, 65)) + (_F32_GROUPS_MAX_T, _F32_GROUPS_MAX_T + 1, 360)
+
+
+def f32_expected_design(C: int, T: int) -> str:
+    """The design that chip_pass must launch for [C, T] inputs."""
+    return F32_DESIGNS[type(_choose_plan_f32(C, T))]
+
+
+# (tc, hbm, valid, age) element offsets of the f32 sweep's views: on
+# 16-byte boundaries, then each array at another offset.
+F32_LAYOUTS = ((0, 0, 0, 0), (1, 3, 5, 0), (2, 1, 10, 1), (3, 2, 15, 3))
+
+
+def f32_design_cases(dev, T: int, C: int, rng) -> dict:
+    """chip_pass against its plain version on one (C, T) fleet in every
+    layout of F32_LAYOUTS: bit-equal verdicts, each launch in the design
+    that the plan promises, whatever the bases' alignment. Returns the
+    launches by design."""
+    tc, hbm, valid, age = f32_edge_fleet(rng, C, T)
+    srcs = [torch.from_numpy(x).to(dev).view(-1) for x in (tc, hbm, valid, age)]
+    flats = [torch.empty(x.numel() + 16, dtype=x.dtype, device=dev) for x in srcs]
+    took = {d: 0 for d in F32_DESIGN_LAUNCHES}
+    for i, offsets in enumerate(F32_LAYOUTS):
+        views = []
+        for flat, x, k in zip(flats, srcs, offsets):
+            views.append(flat[k:k + x.numel()])
+            views[-1].copy_(x)
+        views[:3] = [v.view(C, T) for v in views[:3]]
+        params = torch.tensor(F32_PARAMS[i % len(F32_PARAMS)], device=dev)
+        want_design = f32_expected_design(C, T)
+        before = dict(F32_DESIGN_LAUNCHES)
+        got = chip_pass(*views, params)
+        design = [d for d in F32_DESIGN_LAUNCHES if F32_DESIGN_LAUNCHES[d] != before[d]]
+        what = f"T={T}, C={C}, offsets (tc, hbm, valid, age) {offsets}"
+        check(design == [want_design], f"chip_pass took {design} for {what}, "
+              f"expected {want_design}")
+        want = chip_pass_plain(*views, params)
+        check(torch.equal(got, want), f"chip_pass != plain for {what}: "
+              f"{int((got != want).sum())} chips differ")
+        took[want_design] += 1
+    return took
+
+
+def phase_f32_designs(dev) -> int:
+    """Every design of the f32 pass, forced, on adversarial short rows; then
+    the (C, T, offset) sweep through chip_pass and its plan."""
+    rng = np.random.default_rng(2468)
+    t0 = time.perf_counter()
+    forced = {d: 0 for d in F32_DESIGN_LAUNCHES}
+    err = 0
+    for T in F32_ADVERSARIAL_T:
+        C = 1003
+        args = [torch.from_numpy(x).to(dev) for x in f32_edge_fleet(rng, C, T)]
+        for params in F32_PARAMS:
+            parr = torch.tensor(params, device=dev)
+            want = chip_pass_plain(*args, parr)
+            for design, plan in _f32_plans(C, T).items():
+                got = _launch_f32(*args, parr, plan).view(torch.bool)
+                check(torch.equal(got, want), f"chip_pass, {design} design, != plain at T={T}, "
+                      f"params {params}: {int((got != want).sum())} chips differ")
+                err = max(err, mask_err(got, want))
+                forced[design] += 1
+    took = {d: 0 for d in F32_DESIGN_LAUNCHES}
+    cases = [(C, T) for T in F32_SWEEP_T for C in SWEEP_C]
+    for C, T in cases:
+        for design, n in f32_design_cases(dev, T, C, rng).items():
+            took[design] += n
+    torch.cuda.synchronize()
+    check(all(took.values()), f"the f32 sweep launched {took}")
+    log(f"phase 2: chip_pass, each design forced, equals its plain version bit for bit on "
+        f"adversarial short rows at T in {F32_ADVERSARIAL_T} x {len(F32_PARAMS)} parameter "
+        f"sets: {forced} launches; and, through its plan, on {sum(took.values())} (C, T, "
+        f"offset) cases, T in 1-64, {F32_SWEEP_T[64:]}, C in {SWEEP_C}, each in the design "
+        f"its plan promises: {took} launches (the group design up to T = "
+        f"{_F32_GROUPS_MAX_T}), "
+        f"{time.perf_counter() - t0:.3f} s")
+    return err
 
 
 INPUT_SLICES = 64
@@ -625,19 +744,23 @@ def phase_adversarial(dev) -> dict:
 
 
 DESIGNS_BY_PATH = {}  # chip_pass_q's launches by design, per counted path
+F32_DESIGNS_BY_PATH = {}  # chip_pass's launches by design, per counted path
 
 
 def counted(by_path: dict, path: str, run):
     """run() with the kernel counts zeroed just before it and read just after;
-    the counts are recorded under path, the int8 pass's designs under path in
-    DESIGNS_BY_PATH (added up over repeated runs of a path)."""
+    the counts are recorded under path, each pass's designs under path in
+    DESIGNS_BY_PATH and F32_DESIGNS_BY_PATH (added up over repeated runs of
+    a path)."""
     reset_launches()
     out = run()
     torch.cuda.synchronize()
     by_path[path] = dict(LAUNCHES)
-    seen = DESIGNS_BY_PATH.setdefault(path, {"rows": 0, "tiles": 0})
-    for design, n in DESIGN_LAUNCHES.items():
-        seen[design] += n
+    for by_design, counts in ((DESIGNS_BY_PATH, DESIGN_LAUNCHES),
+                              (F32_DESIGNS_BY_PATH, F32_DESIGN_LAUNCHES)):
+        seen = by_design.setdefault(path, dict.fromkeys(counts, 0))
+        for design, n in counts.items():
+            seen[design] += n
     return out
 
 
@@ -683,6 +806,71 @@ def analyze_cli_check(dev, by_path: dict) -> None:
               f"analyze --stream second cycle gave {result}")
 
 
+def write_dump(path: str, fleet_np, slice_names) -> None:
+    """numpy (tc, hbm, valid, age, slice_id) -> a dump document in the dump
+    format, each chip's series its valid samples (right-aligned, as dumps
+    are), its id zero-padded so that load_fleet keeps the chips' order."""
+    tc, hbm, valid, age, slice_id = fleet_np
+    chips = []
+    for i in range(tc.shape[0]):
+        v = valid[i]
+        chips.append({"slice": slice_names[slice_id[i]], "id": f"pod-{i:07d}/tpu",
+                      "tc": tc[i, v].tolist(), "hbm": hbm[i, v].tolist(),
+                      "pod_age_s": float(age[i])})
+    with open(path, "w") as f:
+        json.dump({"timestamp": 1000.0, "chips": chips}, f)
+
+
+def analyze_dump_width_check(dev, by_path: dict) -> None:
+    """The analyze CLI without --quantize on a dump of 131,072 chips x 8
+    samples in 8,192 slices (make_example_fleet's, every seventh chip cut to
+    1-7 samples): the f32 pass at the dump's width, once, in the design its
+    plan promises; verdicts equal to evaluate_fleet on load_fleet's arrays
+    and to the fleet's expected ones."""
+    inputs, expected = make_example_fleet(CHIPS, DUMP_SAMPLES, SLICES, idle_fraction=0.5,
+                                          seed=0, device="cpu")
+    tc, hbm, valid, age, slice_id = (x.numpy() for x in inputs[:5])
+    short = np.arange(CHIPS) % 7 == 3
+    cut = np.arange(CHIPS)[short] // 7 % 7 + 1  # leading samples each short series lacks
+    valid[short] = np.arange(DUMP_SAMPLES)[None, :] >= cut[:, None]
+    names = [f"ml/slice-{s:05d}" for s in range(SLICES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dump.json")
+        t0 = time.perf_counter()
+        write_dump(path, (tc, hbm, valid, age, slice_id), names)
+        write_s = time.perf_counter() - t0
+        out, err = io.StringIO(), io.StringIO()
+        name = f"analyze CLI, {CHIPS}x{DUMP_SAMPLES} dump"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = counted(by_path, name, lambda: analyze.main([path, "--device", dev.type]))
+        cli_s = time.perf_counter() - t0
+        check(rc == 0, f"{name} returned {rc}: {err.getvalue()[-2000:]}")
+        expect_launches(by_path, name, {"chip_pass": 1})
+        want_design = f32_expected_design(CHIPS, DUMP_SAMPLES)
+        check(F32_DESIGNS_BY_PATH[name][want_design] == 1,
+              f"{name} launched {F32_DESIGNS_BY_PATH[name]}, expected the {want_design} design")
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        t0 = time.perf_counter()
+        with open(path) as f:
+            fleet, loaded_names, _, _ = analyze.load_fleet(json.load(f))
+        parse_s = time.perf_counter() - t0
+    check(loaded_names == names and fleet[0].shape == (CHIPS, DUMP_SAMPLES)
+          and np.array_equal(fleet[2], valid), "load_fleet did not rebuild the dump's arrays")
+    single = evaluate_fleet(*fleet_from_numpy((*fleet, inputs[5].numpy()), dev),
+                            num_slices=SLICES)
+    idle = [names[i] for i in np.flatnonzero(single[0].cpu().numpy())]
+    check(np.array_equal(single[0].cpu().numpy(), expected)
+          and result["reclaimable_slices"] == idle
+          and result["idle_chips"] == int(single[1].sum()) == CHIPS // 2,
+          f"{name}: {len(result['reclaimable_slices'])} reclaimable slices and "
+          f"{result['idle_chips']} idle chips, expected {len(idle)} and {CHIPS // 2}")
+    log(f"phase 3: {name} in {SLICES} slices ({int(short.sum())} chips with 1-7 samples): "
+        f"verdicts equal evaluate_fleet's and the expected ones; one launch of chip_pass, "
+        f"{F32_DESIGNS_BY_PATH[name]}; host wall {cli_s:.3f} s for the CLI (JSON written in "
+        f"{write_s:.3f} s, read and loaded again in {parse_s:.3f} s)")
+
+
 def phase_main_path(dev, by_path: dict):
     t0 = time.perf_counter()
     inputs, expected = make_example_fleet(CHIPS, SAMPLES, SLICES, idle_fraction=0.5,
@@ -726,6 +914,7 @@ def phase_main_path(dev, by_path: dict):
         expect_launches(by_path, path, {kernel: 1})
     main_s = time.perf_counter() - t0
     analyze_cli_check(dev, by_path)
+    analyze_dump_width_check(dev, by_path)
     log(f"phase 3: main path {CHIPS}x{SAMPLES} in {SLICES} slices ok "
         f"(setup {setup_s:.3f} s, evaluations {main_s:.3f} s, launches "
         f"{ {p: c for p, c in by_path.items()} })")
@@ -866,9 +1055,7 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
     }
     rows = {}
     for name, (kernel, plain, nbytes) in work.items():
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_SAMPLE[name] * C * T / SCALAR_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
+        bound_ms, bound_by = bound_ms_of(name, nbytes, C, T)
         ms = time_ms(kernel, 200)
         ms_cold = time_ms(kernel, 200, flush)
         plain_ms = time_ms(plain, 20)
@@ -876,8 +1063,7 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
             "max_abs_err": err[name], "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "bytes": nbytes,
         }
         log(f"phase 4: {at} {name}: kernel {ms:.4f} ms warm, {ms_cold:.4f} ms cold, plain "
@@ -989,13 +1175,14 @@ def design_sweep(dev, C: int, flush: torch.Tensor) -> dict:
     return {"by_T": by_t, "rows_not_faster_where_taken": slower}
 
 
-def xl_fleet(dev):
-    """bench.py's XL fleet: make_example_fleet's layout (uniform slices of 16
-    chips, the first half idle, busy tc in [0.2, 1), hbm in [0.1, 0.9), every
-    sample valid, pods 7200 s old, default params) at 1,048,576 chips x 360
-    samples in 65,536 slices, drawn on the card with a seeded
-    torch.Generator. Returns (evaluate_fleet's inputs, expected verdicts)."""
-    C, T, S = XL_CHIPS, SAMPLES, XL_SLICES
+def seeded_fleet(dev, C: int, T: int, S: int, cut: bool = False):
+    """make_example_fleet's layout (uniform slices, the first half idle,
+    busy tc in [0.2, 1), hbm in [0.1, 0.9), pods 7200 s old, default params)
+    at C chips x T samples in S slices, drawn on the card with a seeded
+    torch.Generator; every sample valid, or with cut every seventh chip's
+    series cut to its last 1 to T - 1 samples behind invalid padding, as a
+    dump's shorter series load. Returns (evaluate_fleet's inputs, expected
+    verdicts)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     tc = torch.rand((C, T), generator=gen, device=dev).mul_(0.8).add_(0.2)
@@ -1003,10 +1190,110 @@ def xl_fleet(dev):
     tc[:C // 2] = 0.0
     hbm[:C // 2] = 0.0
     valid = torch.ones((C, T), dtype=torch.bool, device=dev)
+    if cut and T > 1:
+        rows = torch.arange(3, C, 7, device=dev)
+        lack = rows // 7 % (T - 1) + 1
+        valid[rows] = torch.arange(T, device=dev)[None, :] >= lack[:, None]
     age = torch.full((C,), 7200.0, device=dev)
     slice_id = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(C // S)
     return (tc, hbm, valid, age, slice_id, params_array(PolicyParams(), device=dev)), \
         np.arange(S) < S // 2
+
+
+def xl_fleet(dev):
+    """bench.py's XL fleet: seeded_fleet at 1,048,576 chips x 360 samples in
+    65,536 slices."""
+    return seeded_fleet(dev, XL_CHIPS, SAMPLES, XL_SLICES)
+
+
+def bound_ms_of(name: str, nbytes: int, C: int, T: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the scalar operations over the f32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = OPS_PER_SAMPLE[name] * C * T / SCALAR_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def f32_design_times(args, flush: torch.Tensor) -> dict:
+    """Warm and cold times of each design of tp_chip_pass that takes args'
+    rows (tc, hbm, valid, age, params: CUDA tensors), each first held
+    against the plain version."""
+    C, T = args[0].shape
+    want = chip_pass_plain(*args)
+    times = {}
+    for design, plan in _f32_plans(C, T).items():
+        check(torch.equal(_launch_f32(*args, plan).view(torch.bool), want),
+              f"the f32 {design} design differs from the plain version at {C}x{T}")
+        times[design] = {
+            "ms": time_ms(lambda plan=plan: _launch_f32(*args, plan), 200),
+            "ms_cold": time_ms(lambda plan=plan: _launch_f32(*args, plan), 200, flush),
+            "plan": plan._asdict()}
+    return times
+
+
+F32_SWEEP_TIMING_T = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 24, 32, 33, 48, 64, 96, 128, 192, 256)
+
+
+def f32_design_sweep(dev, C: int, flush: torch.Tensor) -> dict:
+    """Every design of tp_chip_pass at C chips for each T of
+    F32_SWEEP_TIMING_T, warm and cold, on seeded_fleet's rows; and the
+    shapes where the plan's design was not the fastest."""
+    by_t = {}
+    for T in F32_SWEEP_TIMING_T:
+        inputs, _ = seeded_fleet(dev, C, T, C // CPS, cut=True)
+        by_t[T] = {d: [t["ms"], t["ms_cold"]]
+                   for d, t in f32_design_times((*inputs[:4], inputs[5]), flush).items()}
+        del inputs
+    slower = {when: [T for T, t in by_t.items()
+                     if min(x[i] for x in t.values()) < t[f32_expected_design(C, T)][i]]
+              for i, when in enumerate(("warm", "cold"))}
+    log(f"phase 4: {C} chips, chip_pass by T, ms warm/cold: " + "; ".join(
+        f"T={T} " + ", ".join(f"{d} {w:.4f}/{c:.4f}" for d, (w, c) in t.items())
+        for T, t in by_t.items()))
+    log(f"phase 4: {C} chips: the plan's design was not the fastest at {slower}")
+    return {"by_T": by_t, "plan_not_fastest": slower}
+
+
+def phase_dump_width(dev, flush: torch.Tensor) -> dict:
+    """Phase 4 at an audit dump's width, 8 samples a chip: the f32 pass in
+    each design at 32,768, 131,072 and 1,048,576 chips, warm and cold, beside
+    its bound, the plain version and an empty kernel; evaluate_fleet_c end
+    to end at 131,072 chips; then the f32 design sweep by T."""
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), 200)  # an empty kernel, timed alike
+    rows = {}
+    for C in (DRYRUN_CHIPS, CHIPS, XL_CHIPS):
+        inputs, expected = seeded_fleet(dev, C, DUMP_SAMPLES, C // CPS, cut=True)
+        args = (*inputs[:4], inputs[5])
+        nbytes = sum(x.nbytes for x in args) + C
+        bound, bound_by = bound_ms_of("chip_pass", nbytes, C, DUMP_SAMPLES)
+        chosen = f32_expected_design(C, DUMP_SAMPLES)
+        designs = f32_design_times(args, flush)
+        plain_ms = time_ms(lambda: chip_pass_plain(*args), 20)
+        at = f"{C}x{DUMP_SAMPLES}"
+        for design, t in designs.items():
+            log(f"phase 4: {at} chip_pass, {design} design"
+                f"{' (the plan)' if design == chosen else ''}: {t['ms']:.4f} ms warm, "
+                f"{t['ms_cold']:.4f} ms cold, bound {bound:.4f} ms ({nbytes} bytes; "
+                f"{bound / t['ms']:.3f} of the bound warm, {bound / t['ms_cold']:.3f} cold); "
+                f"plan {t['plan']}")
+        log(f"phase 4: {at} chip_pass plain {plain_ms:.4f} ms; an empty kernel {floor_ms:.4f} ms")
+        rows[f"{C} chips"] = {
+            "T": DUMP_SAMPLES, "design": chosen, "ms": designs[chosen]["ms"],
+            "ms_cold": designs[chosen]["ms_cold"], "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bytes": nbytes, "launch_floor_ms": floor_ms,
+            "designs": designs}
+        if C == CHIPS:
+            bounds = slice_bounds(inputs[4], C // CPS, device=dev)
+            check(np.array_equal(evaluate_fleet_c(*inputs[:4], bounds, inputs[5])[0].cpu().numpy(),
+                                 expected), f"{at} evaluate_fleet_c verdicts")
+            rows[f"{C} chips"]["evaluate_fleet_c"] = end_to_end_ms(
+                f"{at} evaluate_fleet_c", lambda: evaluate_fleet_c(*inputs[:4], bounds, inputs[5]),
+                flush)
+        del inputs, args
+    torch.cuda.empty_cache()
+    rows["design_sweep"] = {C: f32_design_sweep(dev, C, flush)
+                            for C in (DRYRUN_CHIPS, CHIPS, XL_CHIPS)}
+    return rows
 
 
 def phase_xl(dev, flush: torch.Tensor):
@@ -1245,20 +1532,21 @@ def ptxas_report(proc: subprocess.Popen) -> None:
         info = [line.split(":", 1)[-1].strip() for line in lines[at + 1:at + 4]
                 if "spill" in line or "Used" in line]
         log(f"phase 1: {name}: {'; '.join(info)}")
-    regs, spilled = {}, []
-    for i, line in enumerate(lines):
-        m = ROWS_SYMBOL.search(line) if "Compiling entry function" in line else None
-        if m:
-            props = " ".join(lines[i + 1:i + 4])
-            regs[int(m.group(1))] = int(re.search(r"Used (\d+) registers", props).group(1))
-            if not re.search(r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-                             props):
-                spilled.append(int(m.group(1)))
-    check(sorted(regs) == sorted(_Q_ROWS_T),
-          f"ptxas reported row-design kernels for T in {sorted(regs)}, the plan has {_Q_ROWS_T}")
-    log(f"phase 1: chip_pass_q, row design, T in {sorted(_Q_ROWS_T)}: "
-        f"{min(regs.values())}-{max(regs.values())} registers "
-        f"(by T: {regs}); stack frame or spills at T in {sorted(spilled)}")
+    for name, (pattern, planned) in INSTANTIATIONS.items():
+        regs, spilled = {}, []
+        for i, line in enumerate(lines):
+            m = re.search(pattern, line) if "Compiling entry function" in line else None
+            if m:
+                props = " ".join(lines[i + 1:i + 4])
+                regs[int(m.group(1))] = int(re.search(r"Used (\d+) registers", props).group(1))
+                if not re.search(r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                                 r"loads", props):
+                    spilled.append(int(m.group(1)))
+        check(sorted(regs) == sorted(planned),
+              f"ptxas reported {name} in {sorted(regs)}, the plan has {sorted(planned)}")
+        log(f"phase 1: {name} in {sorted(planned)}: {min(regs.values())}-"
+            f"{max(regs.values())} registers (by instantiation: {regs}); stack frame or "
+            f"spills at {sorted(spilled)}")
 
 
 def main() -> int:
@@ -1289,6 +1577,7 @@ def main() -> int:
     err = phase_adversarial(dev)
     err["chip_pass_q"] = max(err["chip_pass_q"], phase_int8_edges(dev))
     phase_int8_designs(dev)
+    err["chip_pass"] = max(err["chip_pass"], phase_f32_designs(dev))
     input_err = phase_engine_inputs(dev)
     err = {name: max(e, input_err) for name, e in err.items()}
     by_path = {}
@@ -1305,6 +1594,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["chip_pass_q"]["design_sweep"] = {
         n: design_sweep(dev, n, flush) for n in (DRYRUN_CHIPS, CHIPS, XL_CHIPS)}
+    rows["chip_pass"]["dump"] = phase_dump_width(dev, flush)
     stream, ring_err = phase_streaming(dev, by_path)
     phase_sharded_one_rank(dev, by_path, inputs, expected, q, stream)
     phase_dryrun(by_path)
@@ -1314,12 +1604,14 @@ def main() -> int:
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items() if c[name]}
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] > 0, f"{name} was never launched on the main path")
-    designs = {d: sum(c[d] for c in DESIGNS_BY_PATH.values()) for d in DESIGN_LAUNCHES}
-    rows["chip_pass_q"]["launches_by_design"] = designs
-    check(all(designs.values()), f"both designs of chip_pass_q must run on the main path "
-          f"(phases 3, 5 and 6): {designs}")
-    log(f"chip_pass_q launches by design in phases 3, 5 and 6: {designs} "
-        f"({ {p: c for p, c in DESIGNS_BY_PATH.items() if c['rows']} } took the row design)")
+    for name, by_design, counts in (("chip_pass_q", DESIGNS_BY_PATH, DESIGN_LAUNCHES),
+                                    ("chip_pass", F32_DESIGNS_BY_PATH, F32_DESIGN_LAUNCHES)):
+        designs = {d: sum(c[d] for c in by_design.values()) for d in counts}
+        rows[name]["launches_by_design"] = designs
+        check(all(designs.values()), f"every design of {name} must run on the main path "
+              f"(phases 3, 5 and 6): {designs}")
+        log(f"{name} launches by design in phases 3, 5 and 6: {designs} (by path: "
+            f"{ {p: {d: n for d, n in c.items() if n} for p, c in by_design.items() if any(c.values())} })")
     print(json.dumps({"end_to_end": {f"{CHIPS} chips": end_to_end,
                                      f"{XL_CHIPS} chips": xl_end_to_end}}))
     print(json.dumps({"kernels": list(rows.values())}))

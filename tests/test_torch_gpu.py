@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (INT8_LAYOUTS, INT8_PARAMS, SWEEP_C, SWEEP_T, adversarial_fleet,
-                        engine_input_check, input_cases, int8_design_cases, int8_edge_fleet,
-                        int8_on)
+from chip_smoke import (F32_LAYOUTS, F32_PARAMS, INT8_LAYOUTS, INT8_PARAMS, SWEEP_C, SWEEP_T,
+                        adversarial_fleet, engine_input_check, f32_design_cases,
+                        f32_edge_fleet, f32_expected_design, input_cases, int8_design_cases,
+                        int8_edge_fleet, int8_on)
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
 from tpu_pruner_torch.policy import kernels
@@ -108,6 +109,52 @@ def test_chip_pass_q_design_sweep(cuda, T):
             took[design] += n
     torch.cuda.synchronize()
     assert took["tiles"] > 0 and (took["rows"] > 0) == (T in kernels._Q_ROWS_T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 7, 8, 32, 33, 360])
+def test_chip_pass_designs_match_plain(cuda, T):
+    """Each design of the f32 pass that takes T-sample rows, forced, equals
+    the plain version on adversarial rows with invalid padding; chip_pass
+    launches the design its plan promises, on contiguous tensors and on
+    views off a 16-byte boundary, and equals the plain version there."""
+    C = 1003
+    args = [torch.from_numpy(x).to(cuda) for x in f32_edge_fleet(np.random.default_rng(T), C, T)]
+    for params in F32_PARAMS:
+        parr = torch.tensor(params, device=cuda)
+        want = tp.chip_pass_plain(*args, parr)
+        for design, plan in kernels._f32_plans(C, T).items():
+            before = dict(kernels.F32_DESIGN_LAUNCHES)
+            got = kernels._launch_f32(*args, parr, plan).view(torch.bool)
+            torch.cuda.synchronize()
+            assert kernels.F32_DESIGN_LAUNCHES[design] == before[design] + 1
+            assert torch.equal(got, want), (design, params)
+        for offsets in F32_LAYOUTS:
+            views = []
+            for x, k in zip(args, offsets):
+                flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=cuda)
+                views.append(flat[k:k + x.numel()].view(x.shape))
+                views[-1].copy_(x)
+            before = dict(kernels.F32_DESIGN_LAUNCHES)
+            got = tp.chip_pass(*views, parr)
+            torch.cuda.synchronize()
+            design = f32_expected_design(C, T)
+            assert kernels.F32_DESIGN_LAUNCHES[design] == before[design] + 1, offsets
+            assert torch.equal(got, want), (offsets, params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 3, 7, 8, 9, 16, 31, 32, 33, 64, 256, 257])
+def test_chip_pass_design_sweep(cuda, T):
+    """chip_smoke.py phase 2's f32 sweep at one T: every C of the sweep,
+    bases at each offset, bit-equal to the plain version in the design the
+    plan promises."""
+    took = {}
+    for C in SWEEP_C:
+        for design, n in f32_design_cases(cuda, T, C, np.random.default_rng(T * 37 + C)).items():
+            took[design] = took.get(design, 0) + n
+    torch.cuda.synchronize()
+    assert took[f32_expected_design(1, T)] == len(SWEEP_C) * len(F32_LAYOUTS)
 
 
 @pytest.mark.gpu

@@ -17,6 +17,7 @@ import torch
 
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner.policy import pallas_engine as jpal
+from chip_smoke import F32_PARAMS, f32_edge_fleet
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.policy import kernels
 
@@ -614,3 +615,249 @@ def test_chip_pass_q_empty_fleet_launches_nothing():
     assert out.shape == (0,) and out.dtype == torch.bool
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0}
     assert kernels.DESIGN_LAUNCHES == {"rows": 0, "tiles": 0}
+
+
+# ── the f32 kernel's group design for short rows (plan and arithmetic) ───
+
+_F32_MIN = np.float32(1.1754944e-38)
+
+
+def test_f32_design_constants_agree_with_the_kernels():
+    """_F32_GROUPS_K and _F32_WARPS_PER_BLOCK are what chip_pass.cu
+    instantiates and launches (GroupsK, kWarpsPerBlock); every plan up to
+    the threshold uses an instantiated K; the threshold is the one PERF.md
+    states."""
+    src = (Path(kernels.__file__).parent / "csrc" / "chip_pass.cu").read_text()
+    listed = re.search(r"using GroupsK = std::integer_sequence<int, ([\d, ]+)>;", src).group(1)
+    assert kernels._F32_GROUPS_K == {int(k) for k in listed.split(",")}
+    assert kernels._F32_WARPS_PER_BLOCK == int(
+        re.search(r"constexpr int kWarpsPerBlock = (\d+);", src).group(1))
+    perf = (Path(kernels.__file__).parents[2] / "PERF.md").read_text()
+    assert f"`_F32_GROUPS_MAX_T = {kernels._F32_GROUPS_MAX_T}`" in perf
+    assert {kernels._plan_groups(1, T).samples_per_lane
+            for T in range(1, kernels._F32_GROUPS_MAX_T + 1)} == kernels._F32_GROUPS_K
+    assert kernels._plan_groups(1, kernels._F32_GROUPS_MAX_T).lanes_per_row == 32
+
+
+@pytest.mark.parametrize("num_chips", [1, 3, 31, 1003, 131072])
+def test_choose_plan_f32_takes_each_design_where_intended(num_chips):
+    """The group design for every T up to the threshold, the warp design
+    above it: the T = 360 control keeps the warp kernel."""
+    for T in range(1, 400):
+        plan = kernels._choose_plan_f32(num_chips, T)
+        if T <= kernels._F32_GROUPS_MAX_T:
+            assert plan == kernels._plan_groups(num_chips, T)
+        else:
+            assert plan == kernels.PlanWarps(-(-num_chips // 8))
+    assert isinstance(kernels._choose_plan_f32(num_chips, 360), kernels.PlanWarps)
+    assert kernels._choose_plan_f32(num_chips, 8) == kernels.PlanGroups(
+        2, 4, -(-num_chips // 128))
+
+
+def groups_design_map(C: int, T: int, plan):
+    """The group design's walk, replayed from the kernel's index arithmetic
+    over every thread of the grid, as [warps, 32] arrays of each lane's
+    row, lane in its row and live flag, for the warps that stay (whose
+    first row exists)."""
+    L, _, grid = plan
+    log2 = L.bit_length() - 1
+    assert 1 << log2 == L
+    thread = np.arange(grid * kernels._F32_WARPS_PER_BLOCK * 32, dtype=np.int64)
+    lane = thread & 31
+    warp_row0 = (thread >> 5) << (5 - log2)  # blockIdx * 8 + warp, then rows a warp
+    lane_in_row = lane & (L - 1)
+    row = warp_row0 + (lane >> log2)
+    stays = (warp_row0 < C).reshape(-1, 32)[:, 0]
+    return (row.reshape(-1, 32)[stays], lane_in_row.reshape(-1, 32)[stays],
+            (row < C).reshape(-1, 32)[stays])
+
+
+@pytest.mark.parametrize("num_chips", [1, 3, 31, 1003, 131072])
+def test_f32_plans_cover_each_row_once(num_chips):
+    """For every T up to 64 and the threshold's two sides: every sample of
+    every row is loaded by exactly one lane, every verdict written by one
+    lane, and the grid has no block without a row (what groups_plan_ok
+    checks in C); above the threshold a warp a row."""
+    C = num_chips
+    limit = kernels._F32_GROUPS_MAX_T
+    for T in sorted(set(range(1, 65)) | {limit, limit + 1}):
+        plan = kernels._choose_plan_f32(C, T)
+        if isinstance(plan, kernels.PlanWarps):
+            assert T > limit and plan.grid == -(-C // kernels._F32_WARPS_PER_BLOCK)
+            continue
+        L, K, grid = plan
+        assert L * K >= T and (L == 32 or L * K < 2 * T or T <= K)
+        per_block = kernels._F32_WARPS_PER_BLOCK * (32 // L)
+        assert (grid - 1) * per_block < C <= grid * per_block
+        row, lane_in_row, live = groups_design_map(C, T, plan)
+        loads = [row * T + lane_in_row + j * L for j in range(K)]
+        seen = np.concatenate([x[live & (lane_in_row + j * L < T)]
+                               for j, x in enumerate(loads)])
+        np.testing.assert_array_equal(np.bincount(seen, minlength=C * T), 1)
+        np.testing.assert_array_equal(np.sort(row[live & (lane_in_row == 0)]), np.arange(C))
+
+
+def _flush(x):
+    return np.where(np.abs(x) < _F32_MIN, np.float32(0), x).astype(np.float32)
+
+
+class _Peaks:
+    """RowPeaks of chip_pass.cu over numpy arrays of lanes."""
+
+    def __init__(self, n):
+        self.max = {k: np.full(n, -np.inf, np.float32) for k in ("tc", "hbm")}
+        self.nan = {k: np.zeros(n, bool) for k in ("tc", "hbm")}
+        self.has = np.zeros(n, bool)
+
+    def add(self, x_tc, x_hbm, v, active):
+        """RowPeaks::add where ``active``: an invalid sample reads as -1."""
+        self.has |= active & v
+        for k, x in (("tc", x_tc), ("hbm", x_hbm)):
+            x = np.where(v, _flush(x), np.float32(-1))
+            self.nan[k] |= active & np.isnan(x)
+            up = active & ~np.isnan(x) & (x > self.max[k])
+            self.max[k] = np.where(up, x, self.max[k])
+
+    def verdict(self, age, lookback, cutoff):
+        """verdict_f32."""
+        value = {k: np.where(self.nan[k], np.float32(np.nan), self.max[k]) for k in self.max}
+        with np.errstate(invalid="ignore"):
+            idle = (value["tc"] <= 0) & self.has
+            hbm_active = value["hbm"] >= cutoff
+        return (idle & ~hbm_active & (_flush(age) >= lookback)).astype(np.uint8)
+
+
+def emulate_groups_design(tc, hbm, valid, age, params, plan) -> np.ndarray:
+    """chip_pass.cu's group design on numpy: each lane's strided loads,
+    the xor-shuffle tree over the group's lanes, the ballots masked to the
+    group, and verdict_f32 on each group's first lane."""
+    C, T = tc.shape
+    L, K, _ = plan
+    lookback, cutoff = _flush(params.astype(np.float32))
+    row, lane_in_row, live = groups_design_map(C, T, plan)
+    shape = row.shape
+    row, lane_in_row, live = row.ravel(), lane_in_row.ravel(), live.ravel()
+    p = _Peaks(row.size)
+    for j in range(K):
+        t = lane_in_row + j * L
+        active = live & (t < T)
+        r, tt = np.where(active, row, 0), np.where(active, t, 0)
+        p.add(tc[r, tt], hbm[r, tt], valid[r, tt], active)
+    lane = np.arange(32)
+    for k in p.max:  # other = __shfl_xor_sync(max, off); max = other > max ? other : max
+        m = p.max[k].reshape(shape)
+        off = L >> 1
+        while off:
+            other = m[:, lane ^ off]
+            m = np.where(other > m, other, m)
+            off >>= 1
+        p.max[k] = m.ravel()
+    group = np.uint64((1 << L) - 1 if L < 32 else 0xFFFFFFFF) << \
+        (np.tile(lane, shape[0]) - lane_in_row).astype(np.uint64)
+    weights = np.uint64(1) << lane.astype(np.uint64)
+    for flags in (p.nan["tc"], p.nan["hbm"], p.has):
+        ballot = (flags.reshape(shape).astype(np.uint64) * weights).sum(axis=1)
+        flags[:] = (np.repeat(ballot, 32) & group) != 0
+    leader = live & (lane_in_row == 0)
+    out = np.full(C, 255, np.uint8)
+    out[row[leader]] = p.verdict(age[np.where(live, row, 0)], lookback, cutoff)[leader]
+    return out
+
+
+_jax_chips = None
+
+
+def jax_evaluate_chips(tc, hbm, valid, age, params):
+    global _jax_chips
+    if _jax_chips is None:
+        import jax
+        _jax_chips = jax.jit(jeng.evaluate_chips)
+    return np.asarray(_jax_chips(*(jnp.asarray(x) for x in (tc, hbm, valid, age)),
+                                 jnp.float32(params[0]), jnp.float32(params[1])))
+
+
+@pytest.mark.parametrize("T", range(1, 34))
+def test_f32_group_design_matches_plain_and_reference(T):
+    """The group design's arithmetic, emulated in the plan's lanes and
+    samples, equals chip_pass_plain and the JAX evaluate_chips on
+    adversarial fleets of ragged chip counts, with rows right-aligned
+    behind invalid padding as a dump's shorter series load."""
+    rng = np.random.default_rng(1000 + T)
+    for C in (1, 5, 131, 1003):
+        tc, hbm, valid, age = f32_edge_fleet(rng, C, T)
+        plan = kernels._choose_plan_f32(C, T)
+        assert isinstance(plan, kernels.PlanGroups)
+        for params in F32_PARAMS:
+            parr = np.array(params, np.float32)
+            want = tp.chip_pass_plain(*to_torch(tc, hbm, valid, age, parr)).numpy()
+            np.testing.assert_array_equal(jax_evaluate_chips(tc, hbm, valid, age, parr), want)
+            got = emulate_groups_design(tc, hbm, valid, age, parr, plan)
+            np.testing.assert_array_equal(got, want.astype(np.uint8),
+                                          err_msg=f"C={C}, {plan}, {params}")
+
+
+def test_chip_pass_empty_fleet_launches_nothing():
+    tp.reset_launches()
+    empty = torch.empty((0, 8))
+    out = tp.chip_pass(empty, empty, empty.bool(), torch.empty(0), torch.tensor([2100.0, 1.0]))
+    assert out.shape == (0,) and out.dtype == torch.bool
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0}
+    assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "warps": 0}
+
+
+def dump_at_width(rng, C: int, T: int, S: int) -> dict:
+    """A dump document in the dump format with T samples a full series:
+    about half the slices idle, a share of chips with 1 to T - 1 samples
+    (so load_fleet right-aligns them behind invalid padding), some HBM
+    series of another length, a few young pods and NaN samples."""
+    chips = []
+    for i in range(C):
+        s = i % S
+        n = T if rng.uniform() < 0.7 else int(rng.integers(1, T))
+        busy = s % 2 == 1 or rng.uniform() < 0.01
+        tc = [float(x) for x in (rng.uniform(0.2, 1.0, n) if busy else np.zeros(n))]
+        if rng.uniform() < 0.01:
+            tc[int(rng.integers(0, n))] = float("nan")
+        chip = {"slice": f"ns/slice-{s:03d}", "id": f"ns/pod-{i}/tpu",
+                "tc": tc, "pod_age_s": 60.0 if rng.uniform() < 0.01 else 7200.0}
+        if rng.uniform() < 0.8:
+            m = n if rng.uniform() < 0.8 else int(rng.integers(1, T + 1))
+            hbm = rng.uniform(0.0, 0.04, m)
+            if rng.uniform() < 0.01:
+                hbm[-1] = 0.06  # an HBM-active chip
+            chip["hbm"] = [float(x) for x in hbm]
+        chips.append(chip)
+    return {"timestamp": 1000.0, "hbm_threshold": 0.05, "chips": chips}
+
+
+def test_evaluate_loaded_at_dump_width_matches_reference(tmp_path):
+    """analyze.evaluate_loaded on a dump of 8-sample series (the dump's
+    default window and step), right-aligned and padded, gives the JAX
+    analyze's verdicts and idle chips; the port's CLI its JSON line."""
+    import contextlib
+    import io
+    import json
+
+    from tpu_pruner import analyze as jax_analyze
+    from tpu_pruner_torch import analyze as torch_analyze
+
+    doc = dump_at_width(np.random.default_rng(8), 1003, 8, 101)
+    path = tmp_path / "dump.json"
+    path.write_text(json.dumps(doc))
+
+    def run(main, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            assert main(argv) == 0
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    ref = run(jax_analyze.main, [str(path)])
+    fleet, names, _, _ = torch_analyze.load_fleet(json.loads(path.read_text()))
+    assert fleet[0].shape == (1003, 8) and not fleet[2].all()
+    params = tp.PolicyParams(lookback_s=30 * 60 + 300, hbm_threshold=0.05)
+    verdicts, candidates = torch_analyze.evaluate_loaded(fleet, len(names), params,
+                                                         device=CPU)
+    assert [names[i] for i in np.flatnonzero(verdicts)] == ref["reclaimable_slices"]
+    assert int(candidates.sum()) == ref["idle_chips"]
+    assert 0 < len(ref["reclaimable_slices"]) < len(names)
+    assert run(torch_analyze.main, [str(path), "--device", "cpu"]) == ref

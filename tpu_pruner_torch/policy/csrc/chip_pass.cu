@@ -12,9 +12,12 @@
 // size of 131,072 chips x 360 samples the f32 pass moves 425,328,648 B
 // (127 us at 3.35 TB/s) and the int8 pass 95,027,208 B (28.4 us).
 //
-// tp_chip_pass is the simple design: one warp per chip row, lanes striding
-// over the samples with coalesced scalar loads, a shuffle reduction across
-// the warp, and lane 0 applying the gates.
+// tp_chip_pass has two designs; kernels._choose_plan_f32 picks one per
+// launch from the row length. The group design (below) takes rows of up to
+// 256 samples, such as an audit dump's 8; the warp design takes longer
+// rows: one warp per chip row, lanes striding over the samples with
+// coalesced scalar loads, a shuffle reduction across the warp, and lane 0
+// applying the gates.
 //
 // tp_chip_pass_q has two designs; kernels._choose_plan_q picks one per
 // launch. The row design takes short rows (T in RowsT below: T <= 64 and at
@@ -127,6 +130,27 @@ struct PeakF32 {
     __device__ __forceinline__ float value() const { return nan ? NAN : max; }
 };
 
+// One chip row's running peaks, as every design of the f32 pass folds it.
+struct RowPeaks {
+    PeakF32 tc, hbm;
+    bool has_data = false;
+    __device__ __forceinline__ void add(float x_tc, float x_hbm, bool v) {
+        // invalid samples read as -1, as jnp.where(valid, x, -1) does
+        has_data |= v;
+        tc.add(v ? flush_subnormal(x_tc) : -1.0f);
+        hbm.add(v ? flush_subnormal(x_hbm) : -1.0f);
+    }
+};
+
+// The verdict of one chip from its folded row, as every design applies it.
+__device__ __forceinline__ uint8_t verdict_f32(const RowPeaks& p, float age, float lookback,
+                                               float cutoff) {
+    const bool idle = p.tc.value() <= 0.0f && p.has_data;
+    const bool hbm_active = p.hbm.value() >= cutoff;
+    const bool eligible = flush_subnormal(age) >= lookback;
+    return (idle && !hbm_active && eligible) ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kThreads)
 chip_pass_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
                  const uint8_t* __restrict__ valid, const float* __restrict__ age,
@@ -153,10 +177,8 @@ chip_pass_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
     if (lane == 0) {
         const float lookback = flush_subnormal(params[0]);
         const float cutoff = flush_subnormal(params[1]);
-        const bool idle = peak_tc.value() <= 0.0f && has_data;
-        const bool hbm_active = peak_hbm.value() >= cutoff;
-        const bool eligible = flush_subnormal(age[row]) >= lookback;
-        out[row] = (idle && !hbm_active && eligible) ? 1 : 0;
+        out[row] = verdict_f32(RowPeaks{peak_tc, peak_hbm, has_data}, age[row], lookback,
+                               cutoff);
     }
 }
 
@@ -478,7 +500,7 @@ constexpr int kRowsThreads = 128;  // threads per block (kernels._Q_ROWS_THREADS
 using RowsT = std::integer_sequence<int, 1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24, 32, 40, 48, 64>;
 
 template <int... Ts>
-constexpr bool has_rows_kernel(int T, std::integer_sequence<int, Ts...>) {
+constexpr bool contains(int T, std::integer_sequence<int, Ts...>) {
     return ((T == Ts) || ...);
 }
 
@@ -620,11 +642,119 @@ bool rows_plan_ok(const RowsArgs& a, int64_t T, int64_t rows, int64_t grid) {
                             reinterpret_cast<uintptr_t>(a.hbm_q) |
                             reinterpret_cast<uintptr_t>(a.age) |
                             reinterpret_cast<uintptr_t>(a.out);
-    if (T < 1 || T > 64 || !has_rows_kernel(int(T), RowsT{}) || (bases & 15) != 0)
+    if (T < 1 || T > 64 || !contains(int(T), RowsT{}) || (bases & 15) != 0)
         return false;
     const int64_t per_block = kRowsThreads * rows;
     return a.num_chips > 0 && rows == rows_per_thread(int(T)) && grid <= 0x7fffffff &&
            (grid - 1) * per_block < a.num_chips && a.num_chips <= grid * per_block;
+}
+
+// ── f32 pass for short rows: a lane group per row ──────────────────────────
+//
+// An audit dump holds 8 samples a chip (dump.py's 2100 s window at its 300 s
+// step). The warp design reads such a row with 8 of its 32 lanes, runs three
+// 5-step warp reductions for 8 values, and loads the row's age only after
+// them, a second memory round trip: at 1,048,576 x 8 it took 0.28 ms against
+// a bound of 0.024 ms on the H100 (PERF.md). The group design:
+//   - gives a row L lanes, L a power of two up to 32, and each lane up to K
+//     samples (kernels._plan_groups: K = 4 up to 8 samples, else 8; L the
+//     fewest lanes that cover the row); lane l reads samples l, l + L, ...,
+//     so a warp's j-th loads are runs of L samples of its 32 / L
+//     consecutive rows;
+//   - issues every load before any arithmetic, the row's age (its first
+//     lane) and the parameters included: a thread keeps up to K samples of
+//     each array in flight, where a lane of the warp design keeps one;
+//   - reduces over log2(L) xor shuffles, which stay inside the row's aligned
+//     group of lanes, and takes the NaN and has-data flags from ballots
+//     masked to the group;
+//   - needs no shared memory, no alignment and no template on T, so views
+//     off a 16-byte boundary take it as they are.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+chip_pass_groups_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
+                        const uint8_t* __restrict__ valid, const float* __restrict__ age,
+                        const float* __restrict__ params, uint8_t* __restrict__ out,
+                        int64_t num_chips, int num_samples, int log2_lanes) {
+    const int lanes = 1 << log2_lanes;
+    const int lane = threadIdx.x & 31;
+    const int64_t warp_row0 =
+        (int64_t(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5)) << (5 - log2_lanes);
+    if (warp_row0 >= num_chips) return;  // whole warp leaves together
+    const int lane_in_row = lane & (lanes - 1);
+    const int64_t row = warp_row0 + (lane >> log2_lanes);
+    const bool live = row < num_chips;
+    const int64_t base = row * num_samples;
+
+    // every load before any arithmetic, the age and the parameters included
+    float x_tc[K], x_hbm[K];
+    uint8_t x_valid[K];
+    bool in[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+        const int t = lane_in_row + j * lanes;
+        in[j] = live && t < num_samples;
+        x_valid[j] = in[j] ? __ldg(valid + base + t) : 0;
+        x_tc[j] = in[j] ? __ldg(tc + base + t) : 0.0f;
+        x_hbm[j] = in[j] ? __ldg(hbm + base + t) : 0.0f;
+    }
+    const bool leader = live && lane_in_row == 0;
+    const float row_age = leader ? __ldg(age + row) : 0.0f;
+    const float lookback = flush_subnormal(__ldg(params));
+    const float cutoff = flush_subnormal(__ldg(params + 1));
+
+    RowPeaks p;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+        if (in[j]) p.add(x_tc[j], x_hbm[j], x_valid[j] != 0);
+    // xor offsets below L stay inside the row's aligned group of lanes
+    for (int off = lanes >> 1; off > 0; off >>= 1) {
+        const float other_tc = __shfl_xor_sync(kFullMask, p.tc.max, off);
+        const float other_hbm = __shfl_xor_sync(kFullMask, p.hbm.max, off);
+        p.tc.max = other_tc > p.tc.max ? other_tc : p.tc.max;
+        p.hbm.max = other_hbm > p.hbm.max ? other_hbm : p.hbm.max;
+    }
+    const unsigned group = (lanes == 32 ? kFullMask : (1u << lanes) - 1)
+                           << (lane - lane_in_row);
+    p.tc.nan = __ballot_sync(kFullMask, p.tc.nan) & group;
+    p.hbm.nan = __ballot_sync(kFullMask, p.hbm.nan) & group;
+    p.has_data = __ballot_sync(kFullMask, p.has_data) & group;
+    if (leader) out[row] = verdict_f32(p, row_age, lookback, cutoff);
+}
+
+// The samples a lane of the group design takes (kernels._F32_GROUPS_K).
+using GroupsK = std::integer_sequence<int, 4, 8>;
+
+struct F32Args {
+    const float* tc;
+    const float* hbm;
+    const uint8_t* valid;
+    const float* age;
+    const float* params;
+    uint8_t* out;
+    int64_t num_chips;
+};
+
+template <int K>
+void launch_groups_if(int k, const F32Args& a, int T, int log2_lanes, unsigned grid,
+                      cudaStream_t stream) {
+    if (k == K)
+        chip_pass_groups_kernel<K><<<grid, kThreads, 0, stream>>>(
+            a.tc, a.hbm, a.valid, a.age, a.params, a.out, a.num_chips, T, log2_lanes);
+}
+
+template <int... Ks>
+void launch_groups(int k, std::integer_sequence<int, Ks...>, const F32Args& a, int T,
+                   int log2_lanes, unsigned grid, cudaStream_t stream) {
+    (launch_groups_if<Ks>(k, a, T, log2_lanes, grid, stream), ...);
+}
+
+bool groups_plan_ok(const F32Args& a, int64_t T, int64_t lanes, int64_t k, int64_t grid) {
+    const bool lanes_pow2 = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+    if (!lanes_pow2 || !contains(int(k), GroupsK{}) || T < 1 || lanes * k < T)
+        return false;
+    const int64_t per_block = kWarpsPerBlock * (32 / lanes);
+    return a.num_chips > 0 && grid <= 0x7fffffff && (grid - 1) * per_block < a.num_chips &&
+           a.num_chips <= grid * per_block;
 }
 
 }  // namespace
@@ -669,6 +799,23 @@ int tp_chip_pass_q_rows(const void* tc_q, const void* hbm_q, const void* age,
     if (!rows_plan_ok(a, num_samples, rows, grid))
         return int(cudaErrorInvalidValue);
     launch_rows(int(num_samples), RowsT{}, a, unsigned(grid), static_cast<cudaStream_t>(stream));
+    return int(cudaGetLastError());
+}
+
+// The group design of tp_chip_pass; lanes (a row), samples (a lane) and
+// grid are kernels.PlanGroups in order.
+int tp_chip_pass_groups(const void* tc, const void* hbm, const void* valid, const void* age,
+                        const void* params, void* out, int64_t num_chips, int64_t num_samples,
+                        int64_t lanes, int64_t samples, int64_t grid, void* stream) {
+    const F32Args a{static_cast<const float*>(tc), static_cast<const float*>(hbm),
+                    static_cast<const uint8_t*>(valid), static_cast<const float*>(age),
+                    static_cast<const float*>(params), static_cast<uint8_t*>(out), num_chips};
+    if (!groups_plan_ok(a, num_samples, lanes, samples, grid))
+        return int(cudaErrorInvalidValue);
+    int log2_lanes = 0;
+    while ((int64_t(1) << log2_lanes) < lanes) ++log2_lanes;
+    launch_groups(int(samples), GroupsK{}, a, int(num_samples), log2_lanes, unsigned(grid),
+                  static_cast<cudaStream_t>(stream));
     return int(cudaGetLastError());
 }
 

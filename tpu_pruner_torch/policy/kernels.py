@@ -5,7 +5,10 @@ hot op reads every byte of the ``[chips, samples]`` tensors once and reduces
 each row to one verdict: a bandwidth-bound pass with no tensor-core work.
 
 - ``chip_pass`` (f32 samples + bool mask) launches ``tp_chip_pass`` from
-  ``csrc/chip_pass.cu``, which replaces ``_chip_kernel``;
+  ``csrc/chip_pass.cu``, which replaces ``_chip_kernel``, in one of two
+  designs that ``_choose_plan_f32`` picks: the group design
+  (``tp_chip_pass_groups``) for short rows, such as an audit dump's, and
+  the warp design for the rest;
 - ``chip_pass_q`` (int8 samples, -1 = invalid) launches ``tp_chip_pass_q``,
   which replaces ``_chip_kernel_q``, in one of two designs that
   ``_choose_plan_q`` picks: the row design (``tp_chip_pass_q_rows``) for
@@ -19,8 +22,9 @@ subnormals read as zero, NaN propagates into a row's peak, and an ``+inf``
 cutoff rescues only an ``+inf`` HBM sample.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
-its main path went through the kernels, and ``DESIGN_LAUNCHES`` the int8
-pass's launches per design; ``reset_launches`` zeroes both.
+its main path went through the kernels; ``DESIGN_LAUNCHES`` counts the int8
+pass's launches per design and ``F32_DESIGN_LAUNCHES`` the f32 pass's;
+``reset_launches`` zeroes all three.
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
 LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0}
 DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
+F32_DESIGN_LAUNCHES = {"groups": 0, "warps": 0}  # chip_pass's launches, by design
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, DESIGN_LAUNCHES):
+    for counts in (LAUNCHES, DESIGN_LAUNCHES, F32_DESIGN_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -101,17 +106,75 @@ def chip_pass(tc, hbm, valid, age, params) -> torch.Tensor:
                      "params": (params, torch.float32, (2,))})
     if device.type == "cpu":
         return chip_pass_plain(tc, hbm, valid, age, params)
-    out = torch.empty(C, dtype=torch.uint8, device=device)
-    if C:
-        lib = _build.load()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = lib.tp_chip_pass(
-                tc.data_ptr(), hbm.data_ptr(), valid.view(torch.uint8).data_ptr(),
-                age.data_ptr(), params.data_ptr(), out.data_ptr(), C, T, stream)
-        _build.check(status, "tp_chip_pass")
-        LAUNCHES["chip_pass"] += 1
-    return out.view(torch.bool)
+    if not C:
+        return torch.empty(0, dtype=torch.bool, device=device)
+    return _launch_f32(tc, hbm, valid, age, params, _choose_plan_f32(C, T)).view(torch.bool)
+
+
+# Launch plans of tp_chip_pass. Rows of up to _F32_GROUPS_MAX_T samples take
+# the group design: a power of two of lanes a row, each lane up to 4 samples
+# of a row of at most 8, else up to 8; longer rows the warp design, one warp
+# a row. Where each measured faster on the H100 is in PERF.md.
+_F32_GROUPS_MAX_T = 256
+_F32_GROUPS_K = frozenset({4, 8})  # samples a lane with a kernel (GroupsK)
+_F32_WARPS_PER_BLOCK = 8  # kWarpsPerBlock in csrc/chip_pass.cu
+
+
+class PlanWarps(NamedTuple):
+    grid: int  # blocks of _F32_WARPS_PER_BLOCK warps, one row each
+
+
+class PlanGroups(NamedTuple):
+    lanes_per_row: int     # a power of two up to 32
+    samples_per_lane: int  # one of _F32_GROUPS_K; lanes_per_row * this >= T
+    grid: int              # blocks of _F32_WARPS_PER_BLOCK warps, 32 / lanes rows each
+
+
+F32_DESIGNS = {PlanWarps: "warps", PlanGroups: "groups"}
+
+
+def _plan_groups(num_chips: int, num_samples: int) -> PlanGroups:
+    """Launch plan of the group design for [num_chips, num_samples] rows."""
+    k = 4 if num_samples <= 8 else 8
+    lanes = min(32, 1 << (_cdiv(num_samples, k) - 1).bit_length())
+    return PlanGroups(lanes, k, _cdiv(num_chips, _F32_WARPS_PER_BLOCK * (32 // lanes)))
+
+
+def _choose_plan_f32(num_chips: int, num_samples: int) -> PlanWarps | PlanGroups:
+    """The design of tp_chip_pass and its launch plan: the group design up
+    to _F32_GROUPS_MAX_T samples a row, the warp design above."""
+    if num_samples <= _F32_GROUPS_MAX_T:
+        return _plan_groups(num_chips, num_samples)
+    return PlanWarps(_cdiv(num_chips, _F32_WARPS_PER_BLOCK))
+
+
+def _f32_plans(num_chips: int, num_samples: int) -> dict:
+    """{design: plan} of every design of tp_chip_pass that takes
+    [num_chips, num_samples] rows."""
+    plans = {"warps": PlanWarps(_cdiv(num_chips, _F32_WARPS_PER_BLOCK))}
+    if num_samples <= _F32_GROUPS_MAX_T:
+        plans["groups"] = _plan_groups(num_chips, num_samples)
+    return plans
+
+
+def _launch_f32(tc, hbm, valid, age, params, plan: PlanWarps | PlanGroups) -> torch.Tensor:
+    """tp_chip_pass in the design of ``plan`` on CUDA tensors that chip_pass
+    has checked (C > 0); returns the uint8[C] verdicts. The C entry points
+    refuse a plan that does not fit the inputs."""
+    C, T = tc.shape
+    out = torch.empty(C, dtype=torch.uint8, device=tc.device)
+    lib = _build.load()
+    groups = isinstance(plan, PlanGroups)
+    entry = lib.tp_chip_pass_groups if groups else lib.tp_chip_pass
+    with torch.cuda.device(tc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = entry(tc.data_ptr(), hbm.data_ptr(), valid.view(torch.uint8).data_ptr(),
+                       age.data_ptr(), params.data_ptr(), out.data_ptr(), C, T,
+                       *(plan if groups else ()), stream)
+    _build.check(status, entry.__name__)
+    LAUNCHES["chip_pass"] += 1
+    F32_DESIGN_LAUNCHES[F32_DESIGNS[type(plan)]] += 1
+    return out
 
 
 # Launch plan of tp_chip_pass_q. A block bulk-copies one tile of R rows of
