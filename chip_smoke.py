@@ -8,7 +8,8 @@ Phases, each of which exits non-zero on failure:
    (a second nvcc with -Xptxas -v, started with the build; the int8 pass's
    row design at T = 12, and its registers and spills over every T it has a
    kernel for; the f32 pass's group design for each samples-a-lane it has a
-   kernel for), and print the card's name and power limit;
+   kernel for, and its long-row design for each samples a lane a chunk),
+   and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on an adversarial
    fleet (ragged chip counts, T in {1, 12, 31, 360, 361}, all-invalid rows,
    NaN, subnormals, -0.0, +-inf, finite/+inf/subnormal cutoffs, young
@@ -20,10 +21,11 @@ Phases, each of which exits non-zero on failure:
    127, and one full-width 131,072 x 360 view. Then the int8 kernel's two
    designs (SWEEP_T x SWEEP_C, bases at byte offsets 0-15, hbm alone and the
    ages alone off a 16-byte boundary): bit-equal to the plain version, each
-   launch in the design that its plan promises. Then the f32 kernel's two
-   designs, each forced, on adversarial rows with invalid padding at T in
-   F32_ADVERSARIAL_T, and through its plan on the F32_SWEEP_T x SWEEP_C
-   sweep (bases on and off 16-byte boundaries): bit-equal to the plain
+   launch in the design that its plan promises. Then the f32 kernel's
+   designs, each forced, on adversarial rows with invalid padding and
+   special values in a row's last sample at T in F32_ADVERSARIAL_T, and
+   through its plan on the F32_SWEEP_T x SWEEP_C sweep (bases on and off
+   16-byte boundaries; rows up to 2,880 samples): bit-equal to the plain
    version, each launch in the design its plan promises. Then the engine on the inputs
    the reference takes and the kernel wrappers refuse (input_cases: slice
    ids outside [0, S) as int32, int64, int8 and uint8, bf16, f16 and f64
@@ -52,14 +54,17 @@ Phases, each of which exits non-zero on failure:
    its plain version and its bound at the card's published rates: warm
    (back to back) and cold (a 256 MB scratch buffer zeroed before each
    launch, outside the events, so the 50 MB L2 holds none of the inputs);
-   the int8 kernel also at T = 12, the streaming window's shape, in both
-   designs warm and cold, and plain (also on the dry run's 32,768 rows a
-   rank); and, end to end, evaluate_fleet_qc, evaluate_fleet_qu and one
-   streaming cycle in each form (update_window_ in place, or update_window
-   with fresh rings, + evaluate_window_qc or _qu): device time, warm and
-   cold, from replays of a CUDA graph of one call, eager host wall time per
-   call, and, for qc and qu, the device operations one eager call puts on
-   the card, from a torch.profiler trace (launch_counts). All of it
+   the f32 kernel in each of its designs that takes the rows (the plan's
+   and the warp design), warm and cold; the int8 kernel also at T = 12,
+   the streaming window's shape, in both designs warm and cold, and plain
+   (also on the dry run's 32,768 rows a rank); and, end to end,
+   evaluate_fleet and evaluate_fleet_c (again with the f32 pass's warp
+   design forced), evaluate_fleet_qc, evaluate_fleet_qu and one streaming
+   cycle in each form (update_window_ in place, or update_window with fresh
+   rings, + evaluate_window_qc or _qu): device time, warm and cold, from
+   replays of a CUDA graph of one call, eager host wall time per call, and
+   for the four evaluate_fleet paths the device operations one eager call
+   puts on the card, from a torch.profiler trace (launch_counts). All of it
    twice: on the main path's fleet, and at bench.py's XL point, 1,048,576
    chips x 360 samples in 65,536 slices, built on the card with a seeded
    torch.Generator, whose qc, qu and f32 verdicts and both kernels are
@@ -69,9 +74,10 @@ Phases, each of which exits non-zero on failure:
    Then the f32 kernel at the dump's width, 8 samples a chip with padded
    short series, in each design at the same three sizes, warm and cold,
    beside its bound, its plain version and an empty kernel;
-   evaluate_fleet_c end to end at 131,072 x 8; and both f32 designs for
-   each T of F32_SWEEP_TIMING_T at the three sizes, and where the plan's
-   design was not the fastest;
+   evaluate_fleet_c end to end at 131,072 x 8; and the f32 designs for
+   each T of f32_timing_t(C) at the three sizes (rows of 1 to 2,880
+   samples; the long-row design also at its other samples a lane), and
+   where the plan's design was not the fastest;
 5. the streaming window at full width, K = 12 chunks of 6 new samples a
    cycle, 14 cycles (the ring wraps): each cycle's evaluate_window_qc and
    _qu must equal evaluate_fleet_qc over the last <= 12 chunks and the
@@ -134,11 +140,13 @@ from tpu_pruner_torch.policy import (
     make_sharded_evaluator_qc, make_sharded_evaluator_qu, quantize_fleet_inputs,
     params_array, quantize_params, quantize_samples, quantize_samples_device, reset_launches,
     shard_bounds, slice_bounds, update_window, update_window_)
+from tpu_pruner_torch.policy import kernels
 from tpu_pruner_torch.policy.engine import normalize_inputs, normalize_inputs_q
 from tpu_pruner_torch.policy.kernels import (
-    _F32_GROUPS_K, _F32_GROUPS_MAX_T, _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES,
-    F32_DESIGN_LAUNCHES, F32_DESIGNS, PlanRows, _choose_plan_f32, _choose_plan_q, _f32_plans,
-    _launch_f32, _launch_q, _plan_q, _plan_q_rows, _sm_count)
+    _F32_GROUPS_K, _F32_GROUPS_MAX_T, _F32_LONG_K, _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES,
+    _F32_WARPS_PER_BLOCK, F32_DESIGN_LAUNCHES, F32_DESIGNS, PlanLong, PlanRows, PlanWarps,
+    _choose_plan_f32, _choose_plan_q, _f32_plans, _launch_f32, _launch_q, _plan_q, _plan_q_rows,
+    _sm_count)
 from tpu_pruner_torch.policy.sharded import run_local, run_stream_local
 
 CHIPS, SAMPLES, SLICES = 131072, 360, 8192
@@ -159,7 +167,8 @@ REPLACES = {
     "chip_pass_q": "tpu_pruner/policy/pallas_engine.py:104",
 }
 SOURCE = "tpu_pruner_torch/policy/csrc/chip_pass.cu"
-KERNEL_SYMBOLS = {"chip_pass": "chip_pass_kernel", "chip_pass_q": "chip_pass_q_kernel",
+KERNEL_SYMBOLS = {"chip_pass, warp design": "chip_pass_kernel",
+                  "chip_pass_q": "chip_pass_q_kernel",
                   f"chip_pass_q, row design, T={WINDOW_CHUNKS}":
                   f"chip_pass_q_rows_kernelILi{WINDOW_CHUNKS}E"}
 # templated kernels: name -> (symbol pattern, the instantiations the plan uses)
@@ -167,6 +176,8 @@ INSTANTIATIONS = {
     "chip_pass_q, row design, T": (r"chip_pass_q_rows_kernelILi(\d+)E", _Q_ROWS_T),
     "chip_pass, group design, samples a lane": (r"chip_pass_groups_kernelILi(\d+)E",
                                                 _F32_GROUPS_K),
+    "chip_pass, long-row design, samples a lane a chunk": (r"chip_pass_long_kernelILi(\d+)E",
+                                                           _F32_LONG_K),
 }
 DUMP_SAMPLES = 8  # an audit dump's series: dump.py's 2100 s window at its 300 s step
 FLUSH_BYTES = 256 * 2**20  # > 5x the H100's 50 MB L2
@@ -364,28 +375,45 @@ def phase_int8_designs(dev) -> None:
 
 
 def f32_edge_fleet(rng, C: int, T: int):
-    """numpy f32 fleet for the f32 kernel's short rows: adversarial_fleet's
-    values (NaN, +-inf, -0.0, +-subnormals, absent series, young pods), and
-    a third of the rows right-aligned behind invalid padding, as
-    analyze.load_fleet writes a dump's shorter series."""
+    """numpy f32 fleet for the f32 kernel's designs: adversarial_fleet's
+    values (NaN, +-inf, -0.0, +-subnormals, absent series, young pods); a
+    third of the rows right-aligned behind invalid padding, as
+    analyze.load_fleet writes a dump's shorter series; and a tenth of the
+    rows quiet but for their last sample, valid, which holds a busy, NaN,
+    +-inf, -0.0, subnormal or negative value in tc or in hbm, so that a
+    design that walks a row in chunks meets it in the row's last chunk."""
     tc, hbm, valid, age = adversarial_fleet(rng, C, T)
     short = rng.uniform(size=C) < 0.3
     valid[short] &= np.arange(T)[None, :] >= rng.integers(0, T + 1, size=int(short.sum()))[:, None]
+    last = np.flatnonzero(rng.uniform(size=C) < 0.1)
+    tc[last], hbm[last], valid[last, -1] = 0.0, 0.0, True
+    in_tc = rng.uniform(size=last.size) < 0.5
+    x = rng.choice(np.array([0.7, np.nan, np.inf, -np.inf, -0.0, 1e-40, -0.5, 0.05],
+                            np.float32), size=last.size)
+    tc[last[in_tc], -1], hbm[last[~in_tc], -1] = x[in_tc], x[~in_tc]
     return tc, hbm, valid, age
 
 
 # The f32 pass's parameter sets: PARAMS of the int8 pass and a negative
 # cutoff, under which an invalid sample's -1 rescues and padding must not.
 F32_PARAMS = INT8_PARAMS + [(2100.0, -5.0)]
-F32_ADVERSARIAL_T = (2, 7, 8, 9, 16, 32, 33)
+F32_ADVERSARIAL_T = (2, 7, 8, 9, 16, 32, 33, 257, 360, 513)
 # Phase 2's sweep of the f32 pass: every T up to 64, the group design's
-# threshold on either side, and the warp design's 360.
-F32_SWEEP_T = tuple(range(1, 65)) + (_F32_GROUPS_MAX_T, _F32_GROUPS_MAX_T + 1, 360)
+# threshold on either side, and the long-row design's rows on either side
+# of each of its limits: one chunk of 12 samples a lane (384), of 16 (512),
+# two chunks of 12 (768 > 720), and rows of several chunks.
+F32_SWEEP_T = tuple(range(1, 65)) + (_F32_GROUPS_MAX_T, _F32_GROUPS_MAX_T + 1, 300, 359, 360,
+                                     361, 383, 384, 385, 512, 513, 720, 1024, 2880)
 
 
 def f32_expected_design(C: int, T: int) -> str:
     """The design that chip_pass must launch for [C, T] inputs."""
     return F32_DESIGNS[type(_choose_plan_f32(C, T))]
+
+
+# The f32 designs that the plan takes for some row length (the warp design
+# runs only where it is forced, as the timing control).
+F32_PLANNED = sorted({f32_expected_design(1, T) for T in F32_SWEEP_T})
 
 
 # (tc, hbm, valid, age) element offsets of the f32 sweep's views: on
@@ -448,13 +476,14 @@ def phase_f32_designs(dev) -> int:
         for design, n in f32_design_cases(dev, T, C, rng).items():
             took[design] += n
     torch.cuda.synchronize()
-    check(all(took.values()), f"the f32 sweep launched {took}")
+    check(all(bool(n) == (d in F32_PLANNED) for d, n in took.items()),
+          f"the f32 sweep launched {took}, expected every design of {F32_PLANNED} and no other")
     log(f"phase 2: chip_pass, each design forced, equals its plain version bit for bit on "
-        f"adversarial short rows at T in {F32_ADVERSARIAL_T} x {len(F32_PARAMS)} parameter "
+        f"adversarial rows at T in {F32_ADVERSARIAL_T} x {len(F32_PARAMS)} parameter "
         f"sets: {forced} launches; and, through its plan, on {sum(took.values())} (C, T, "
         f"offset) cases, T in 1-64, {F32_SWEEP_T[64:]}, C in {SWEEP_C}, each in the design "
         f"its plan promises: {took} launches (the group design up to T = "
-        f"{_F32_GROUPS_MAX_T}), "
+        f"{_F32_GROUPS_MAX_T}, the long-row design above), "
         f"{time.perf_counter() - t0:.3f} s")
     return err
 
@@ -987,6 +1016,18 @@ def end_to_end_ms(name: str, fn, flush: torch.Tensor) -> dict:
     return {"ms": warm, "ms_cold": cold, "wall_ms": wall}
 
 
+@contextlib.contextmanager
+def forced_f32_plan(choose):
+    """chip_pass launches choose(C, T)'s plan instead of its own while the
+    block runs (timing only: the launches are not the main path's)."""
+    own = kernels._choose_plan_f32
+    kernels._choose_plan_f32 = choose
+    try:
+        yield
+    finally:
+        kernels._choose_plan_f32 = own
+
+
 def launch_counts(name: str, fn) -> dict | None:
     """The device operations (kernels, memsets, copies) that one eager call
     of fn puts on the card, by name, from a torch.profiler trace of a warm
@@ -1069,6 +1110,12 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
         log(f"phase 4: {at} {name}: kernel {ms:.4f} ms warm, {ms_cold:.4f} ms cold, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes; "
             f"{bound_ms / ms:.3f} of the bound warm, {bound_ms / ms_cold:.3f} cold)")
+    # the f32 pass in each design that takes these rows: the plan's, and the
+    # warp design beside it as the control, in the same run
+    f32_args = (tc, hbm, valid, age, parr)
+    rows["chip_pass"]["designs"] = f32_design_times(f32_args, flush)
+    log_f32_designs(at, rows["chip_pass"]["designs"], f32_expected_design(C, T),
+                    rows["chip_pass"]["bound_ms"], rows["chip_pass"]["bytes"])
 
     # the streaming window's shape: a full ring of 12 chunk maxima per chip,
     # both designs of the int8 pass, also on the dry run's 32,768 rows a rank
@@ -1082,6 +1129,9 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
 
     bounds = slice_bounds(slice_id, num_slices, device=tc.device)
     e2e = {
+        "evaluate_fleet": lambda: evaluate_fleet(tc, hbm, valid, age, slice_id, parr,
+                                                 num_slices=num_slices),
+        "evaluate_fleet_c": lambda: evaluate_fleet_c(tc, hbm, valid, age, bounds, parr),
         "evaluate_fleet_qc": lambda: evaluate_fleet_qc(tc_q, hbm_q, age, bounds, parr_q),
         "evaluate_fleet_qu": lambda: evaluate_fleet_qu(tc_q, hbm_q, age, parr_q, cps),
     }
@@ -1096,7 +1146,13 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
             lambda update=update: evaluate_window_qu(update(state, tc_new, hbm_new), age,
                                                      parr_q, cps))
     end_to_end = {name: end_to_end_ms(f"{at} {name}", fn, flush) for name, fn in e2e.items()}
-    for name in ("evaluate_fleet_qc", "evaluate_fleet_qu"):
+    # the f32 paths again with the warp design forced, so that the record
+    # shows whether end to end follows the pass
+    with forced_f32_plan(lambda C, T: PlanWarps(-(-C // _F32_WARPS_PER_BLOCK))):
+        for name in ("evaluate_fleet", "evaluate_fleet_c"):
+            end_to_end[f"{name}, warp design forced"] = end_to_end_ms(
+                f"{at} {name}, warp design forced", e2e[name], flush)
+    for name in ("evaluate_fleet", "evaluate_fleet_c", "evaluate_fleet_qc", "evaluate_fleet_qu"):
         end_to_end[name]["device_ops"] = launch_counts(f"{at} {name}", e2e[name])
     amax_ms = time_ms(lambda: torch.amax(tc, 1), 50)
     log(f"context (not a port of either kernel): {at} torch.amax(tc, 1) {amax_ms:.4f} ms")
@@ -1214,14 +1270,19 @@ def bound_ms_of(name: str, nbytes: int, C: int, T: int) -> tuple[float, str]:
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def f32_design_times(args, flush: torch.Tensor) -> dict:
+def f32_design_times(args, flush: torch.Tensor, other_k: bool = False) -> dict:
     """Warm and cold times of each design of tp_chip_pass that takes args'
     rows (tc, hbm, valid, age, params: CUDA tensors), each first held
-    against the plain version."""
+    against the plain version; with other_k, the long-row design also at
+    the samples a lane that its plan does not take ("long, K=...")."""
     C, T = args[0].shape
     want = chip_pass_plain(*args)
+    plans = _f32_plans(C, T)
+    if other_k and "long" in plans:
+        k = min(_F32_LONG_K - {plans["long"].samples_per_lane})
+        plans[f"long, K={k}"] = PlanLong(k, plans["long"].grid)
     times = {}
-    for design, plan in _f32_plans(C, T).items():
+    for design, plan in plans.items():
         check(torch.equal(_launch_f32(*args, plan).view(torch.bool), want),
               f"the f32 {design} design differs from the plain version at {C}x{T}")
         times[design] = {
@@ -1231,27 +1292,46 @@ def f32_design_times(args, flush: torch.Tensor) -> dict:
     return times
 
 
-F32_SWEEP_TIMING_T = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 24, 32, 33, 48, 64, 96, 128, 192, 256)
+def f32_timing_t(C: int) -> tuple:
+    """The row lengths of phase 4's f32 sweep at C chips: short rows for the
+    group design, long rows for the long-row design; at 1,048,576 chips up
+    to 720 samples (6.8 GB of inputs), at 131,072 also 2,880."""
+    short = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 24, 32, 33, 48, 64, 96, 128, 192, 256)
+    long = (300, 360, 384, 512, 720) + ((1024,) if C < XL_CHIPS else ())
+    return short + long + ((2880,) if C == CHIPS else ())
 
 
 def f32_design_sweep(dev, C: int, flush: torch.Tensor) -> dict:
     """Every design of tp_chip_pass at C chips for each T of
-    F32_SWEEP_TIMING_T, warm and cold, on seeded_fleet's rows; and the
-    shapes where the plan's design was not the fastest."""
+    f32_timing_t(C), warm and cold, on seeded_fleet's rows (the long-row
+    design also at its other samples a lane); and the shapes where the
+    plan's design was not the fastest of the designs."""
     by_t = {}
-    for T in F32_SWEEP_TIMING_T:
+    for T in f32_timing_t(C):
         inputs, _ = seeded_fleet(dev, C, T, C // CPS, cut=True)
-        by_t[T] = {d: [t["ms"], t["ms_cold"]]
-                   for d, t in f32_design_times((*inputs[:4], inputs[5]), flush).items()}
+        by_t[T] = {d: [t["ms"], t["ms_cold"]] for d, t in
+                   f32_design_times((*inputs[:4], inputs[5]), flush, other_k=True).items()}
         del inputs
+        torch.cuda.empty_cache()
     slower = {when: [T for T, t in by_t.items()
-                     if min(x[i] for x in t.values()) < t[f32_expected_design(C, T)][i]]
+                     if min(x[i] for d, x in t.items() if d in F32_DESIGNS.values())
+                     < t[f32_expected_design(C, T)][i]]
               for i, when in enumerate(("warm", "cold"))}
     log(f"phase 4: {C} chips, chip_pass by T, ms warm/cold: " + "; ".join(
         f"T={T} " + ", ".join(f"{d} {w:.4f}/{c:.4f}" for d, (w, c) in t.items())
         for T, t in by_t.items()))
     log(f"phase 4: {C} chips: the plan's design was not the fastest at {slower}")
     return {"by_T": by_t, "plan_not_fastest": slower}
+
+
+def log_f32_designs(at: str, designs: dict, chosen: str, bound: float, nbytes: int) -> None:
+    """One line a design of f32_design_times: its times and share of the bound."""
+    for design, t in designs.items():
+        log(f"phase 4: {at} chip_pass, {design} design"
+            f"{' (the plan)' if design == chosen else ''}: {t['ms']:.4f} ms warm, "
+            f"{t['ms_cold']:.4f} ms cold, bound {bound:.4f} ms ({nbytes} bytes; "
+            f"{bound / t['ms']:.3f} of the bound warm, {bound / t['ms_cold']:.3f} cold); "
+            f"plan {t['plan']}")
 
 
 def phase_dump_width(dev, flush: torch.Tensor) -> dict:
@@ -1270,12 +1350,7 @@ def phase_dump_width(dev, flush: torch.Tensor) -> dict:
         designs = f32_design_times(args, flush)
         plain_ms = time_ms(lambda: chip_pass_plain(*args), 20)
         at = f"{C}x{DUMP_SAMPLES}"
-        for design, t in designs.items():
-            log(f"phase 4: {at} chip_pass, {design} design"
-                f"{' (the plan)' if design == chosen else ''}: {t['ms']:.4f} ms warm, "
-                f"{t['ms_cold']:.4f} ms cold, bound {bound:.4f} ms ({nbytes} bytes; "
-                f"{bound / t['ms']:.3f} of the bound warm, {bound / t['ms_cold']:.3f} cold); "
-                f"plan {t['plan']}")
+        log_f32_designs(at, designs, chosen, bound, nbytes)
         log(f"phase 4: {at} chip_pass plain {plain_ms:.4f} ms; an empty kernel {floor_ms:.4f} ms")
         rows[f"{C} chips"] = {
             "T": DUMP_SAMPLES, "design": chosen, "ms": designs[chosen]["ms"],
@@ -1604,12 +1679,13 @@ def main() -> int:
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items() if c[name]}
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] > 0, f"{name} was never launched on the main path")
-    for name, by_design, counts in (("chip_pass_q", DESIGNS_BY_PATH, DESIGN_LAUNCHES),
-                                    ("chip_pass", F32_DESIGNS_BY_PATH, F32_DESIGN_LAUNCHES)):
+    for name, by_design, counts, planned in (
+            ("chip_pass_q", DESIGNS_BY_PATH, DESIGN_LAUNCHES, sorted(DESIGN_LAUNCHES)),
+            ("chip_pass", F32_DESIGNS_BY_PATH, F32_DESIGN_LAUNCHES, F32_PLANNED)):
         designs = {d: sum(c[d] for c in by_design.values()) for d in counts}
         rows[name]["launches_by_design"] = designs
-        check(all(designs.values()), f"every design of {name} must run on the main path "
-              f"(phases 3, 5 and 6): {designs}")
+        check(all(designs[d] for d in planned), f"every design of {name} that its plan takes "
+              f"({planned}) must run on the main path (phases 3, 5 and 6): {designs}")
         log(f"{name} launches by design in phases 3, 5 and 6: {designs} (by path: "
             f"{ {p: {d: n for d, n in c.items() if n} for p, c in by_design.items() if any(c.values())} })")
     print(json.dumps({"end_to_end": {f"{CHIPS} chips": end_to_end,

@@ -112,7 +112,7 @@ def test_chip_pass_q_design_sweep(cuda, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [1, 7, 8, 32, 33, 360])
+@pytest.mark.parametrize("T", [1, 7, 8, 32, 33, 257, 360, 384, 385, 513, 2880])
 def test_chip_pass_designs_match_plain(cuda, T):
     """Each design of the f32 pass that takes T-sample rows, forced, equals
     the plain version on adversarial rows with invalid padding; chip_pass
@@ -144,7 +144,8 @@ def test_chip_pass_designs_match_plain(cuda, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [1, 2, 3, 7, 8, 9, 16, 31, 32, 33, 64, 256, 257])
+@pytest.mark.parametrize("T", [1, 2, 3, 7, 8, 9, 16, 31, 32, 33, 64, 256, 257, 300, 360, 384,
+                               385, 512, 513, 720])
 def test_chip_pass_design_sweep(cuda, T):
     """chip_smoke.py phase 2's f32 sweep at one T: every C of the sweep,
     bases at each offset, bit-equal to the plain version in the design the

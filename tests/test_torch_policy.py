@@ -623,13 +623,17 @@ _F32_MIN = np.float32(1.1754944e-38)
 
 
 def test_f32_design_constants_agree_with_the_kernels():
-    """_F32_GROUPS_K and _F32_WARPS_PER_BLOCK are what chip_pass.cu
-    instantiates and launches (GroupsK, kWarpsPerBlock); every plan up to
-    the threshold uses an instantiated K; the threshold is the one PERF.md
-    states."""
+    """_F32_GROUPS_K, _F32_LONG_K and _F32_WARPS_PER_BLOCK are what
+    chip_pass.cu instantiates and launches (GroupsK, LongK,
+    kWarpsPerBlock); every plan up to the threshold uses an instantiated K
+    of the group design, every plan above it one of the long-row design;
+    the threshold is the one PERF.md states."""
     src = (Path(kernels.__file__).parent / "csrc" / "chip_pass.cu").read_text()
-    listed = re.search(r"using GroupsK = std::integer_sequence<int, ([\d, ]+)>;", src).group(1)
-    assert kernels._F32_GROUPS_K == {int(k) for k in listed.split(",")}
+    for name, ks in (("GroupsK", kernels._F32_GROUPS_K), ("LongK", kernels._F32_LONG_K)):
+        listed = re.search(rf"using {name} = std::integer_sequence<int, ([\d, ]+)>;", src)
+        assert ks == {int(k) for k in listed.group(1).split(",")}
+    assert {kernels._plan_long(1, T).samples_per_lane
+            for T in range(kernels._F32_GROUPS_MAX_T + 1, 3000)} == kernels._F32_LONG_K
     assert kernels._F32_WARPS_PER_BLOCK == int(
         re.search(r"constexpr int kWarpsPerBlock = (\d+);", src).group(1))
     perf = (Path(kernels.__file__).parents[2] / "PERF.md").read_text()
@@ -641,15 +645,21 @@ def test_f32_design_constants_agree_with_the_kernels():
 
 @pytest.mark.parametrize("num_chips", [1, 3, 31, 1003, 131072])
 def test_choose_plan_f32_takes_each_design_where_intended(num_chips):
-    """The group design for every T up to the threshold, the warp design
-    above it: the T = 360 control keeps the warp kernel."""
-    for T in range(1, 400):
+    """The group design for every T up to the threshold, the long-row
+    design above it (16 samples a lane where that is one chunk and 12 are
+    not, else 12; T = 360 one chunk of 12); the warp design only among the
+    forced plans, beside the plan's, at every T."""
+    grid = -(-num_chips // 8)
+    for T in range(1, 3000):
         plan = kernels._choose_plan_f32(num_chips, T)
         if T <= kernels._F32_GROUPS_MAX_T:
             assert plan == kernels._plan_groups(num_chips, T)
         else:
-            assert plan == kernels.PlanWarps(-(-num_chips // 8))
-    assert isinstance(kernels._choose_plan_f32(num_chips, 360), kernels.PlanWarps)
+            assert plan == kernels.PlanLong(16 if 384 < T <= 512 else 12, grid)
+        design = kernels.F32_DESIGNS[type(plan)]
+        assert kernels._f32_plans(num_chips, T) == {"warps": kernels.PlanWarps(grid),
+                                                    design: plan}
+    assert kernels._choose_plan_f32(num_chips, 360) == kernels.PlanLong(12, grid)
     assert kernels._choose_plan_f32(num_chips, 8) == kernels.PlanGroups(
         2, 4, -(-num_chips // 128))
 
@@ -672,18 +682,50 @@ def groups_design_map(C: int, T: int, plan):
             (row < C).reshape(-1, 32)[stays])
 
 
+def long_design_map(C: int, T: int, plan):
+    """The long-row design's walk, replayed from the kernel's index
+    arithmetic over every thread of the grid: each lane's row as a
+    [warps, 32] array for the warps that stay (whose row exists), and the
+    sample t0 + lane + 32 j that a lane loads for each chunk start t0 < T
+    (0, 32 K, ...) and each j < K, as a [chunks, K, 32] array (a sample at
+    or past T is not loaded)."""
+    K, grid = plan
+    thread = np.arange(grid * kernels._F32_WARPS_PER_BLOCK * 32, dtype=np.int64)
+    row = (thread >> 5).reshape(-1, 32)  # blockIdx * 8 + warp
+    t = (np.arange(0, T, 32 * K)[:, None, None] + 32 * np.arange(K)[None, :, None]
+         + np.arange(32)[None, None, :])
+    return row[row[:, 0] < C], t
+
+
+# rows longer than the group design's: each limit of the long-row design's
+# chunks (384 and 512 samples), and rows of several chunks
+LONG_T = (257, 300, 360, 383, 384, 385, 512, 513, 720, 769, 1000, 1024, 2880)
+
+
 @pytest.mark.parametrize("num_chips", [1, 3, 31, 1003, 131072])
 def test_f32_plans_cover_each_row_once(num_chips):
-    """For every T up to 64 and the threshold's two sides: every sample of
-    every row is loaded by exactly one lane, every verdict written by one
-    lane, and the grid has no block without a row (what groups_plan_ok
-    checks in C); above the threshold a warp a row."""
+    """For every T up to 64, the threshold's two sides and the long rows of
+    LONG_T (at 131,072 chips up to 360): every sample of every row is
+    loaded by exactly one lane, every verdict written by one lane, and the
+    grid has no block without a row (what groups_plan_ok and long_plan_ok
+    check in C)."""
     C = num_chips
     limit = kernels._F32_GROUPS_MAX_T
-    for T in sorted(set(range(1, 65)) | {limit, limit + 1}):
+    long_t = [T for T in LONG_T if C * T <= 131072 * 360]
+    for T in sorted(set(range(1, 65)) | {limit, limit + 1} | set(long_t)):
         plan = kernels._choose_plan_f32(C, T)
-        if isinstance(plan, kernels.PlanWarps):
-            assert T > limit and plan.grid == -(-C // kernels._F32_WARPS_PER_BLOCK)
+        if isinstance(plan, kernels.PlanLong):
+            assert T > limit
+            K, grid = plan
+            per_block = kernels._F32_WARPS_PER_BLOCK
+            assert (grid - 1) * per_block < C <= grid * per_block
+            assert 32 * K * (-(-T // (32 * K)) - 1) < T  # no chunk without a sample
+            row, t = long_design_map(C, T, plan)
+            np.testing.assert_array_equal(np.sort(row[:, 0]), np.arange(C))
+            assert (row == row[:, :1]).all()  # a warp a row
+            seen = (row[:, None, None, :] * T + t[None])[np.broadcast_to(t < T, (len(row),)
+                                                                        + t.shape)]
+            np.testing.assert_array_equal(np.bincount(seen, minlength=C * T), 1)
             continue
         L, K, grid = plan
         assert L * K >= T and (L == 32 or L * K < 2 * T or T <= K)
@@ -733,7 +775,6 @@ def emulate_groups_design(tc, hbm, valid, age, params, plan) -> np.ndarray:
     group, and verdict_f32 on each group's first lane."""
     C, T = tc.shape
     L, K, _ = plan
-    lookback, cutoff = _flush(params.astype(np.float32))
     row, lane_in_row, live = groups_design_map(C, T, plan)
     shape = row.shape
     row, lane_in_row, live = row.ravel(), lane_in_row.ravel(), live.ravel()
@@ -743,6 +784,36 @@ def emulate_groups_design(tc, hbm, valid, age, params, plan) -> np.ndarray:
         active = live & (t < T)
         r, tt = np.where(active, row, 0), np.where(active, t, 0)
         p.add(tc[r, tt], hbm[r, tt], valid[r, tt], active)
+    return _lane_group_verdicts(p, shape, L, row, lane_in_row, live, age, params, C)
+
+
+def emulate_long_design(tc, hbm, valid, age, params, plan) -> np.ndarray:
+    """chip_pass.cu's long-row design on numpy: each lane's chunks of K
+    samples 32 apart, folded chunk by chunk in the kernel's order, then
+    the xor-shuffle tree over the warp, the warp votes of the flags and
+    verdict_f32 on lane 0, as in the group design with 32 lanes a row."""
+    C, T = tc.shape
+    row, t = long_design_map(C, T, plan)
+    shape = row.shape
+    row = row.ravel()
+    p = _Peaks(row.size)
+    for chunk in t:
+        for t_j in chunk:  # LaneSamples<K>::fold
+            tt = np.tile(t_j, shape[0])
+            active = tt < T
+            tt = np.where(active, tt, 0)
+            p.add(tc[row, tt], hbm[row, tt], valid[row, tt], active)
+    lane_in_row = np.tile(np.arange(32), shape[0])
+    return _lane_group_verdicts(p, shape, 32, row, lane_in_row, np.ones(row.size, bool), age,
+                                params, C)
+
+
+def _lane_group_verdicts(p, shape, L, row, lane_in_row, live, age, params, C) -> np.ndarray:
+    """The end both designs share, over lanes laid out as [warps, 32]: the
+    xor shuffles of the two maxima inside each group of L lanes, the flags'
+    ballots masked to the group, and verdict_f32 on each group's first
+    lane; out[row] for every row, 255 where no lane wrote one."""
+    lookback, cutoff = _flush(params.astype(np.float32))
     lane = np.arange(32)
     for k in p.max:  # other = __shfl_xor_sync(max, off); max = other > max ? other : max
         m = p.max[k].reshape(shape)
@@ -796,13 +867,42 @@ def test_f32_group_design_matches_plain_and_reference(T):
                                           err_msg=f"C={C}, {plan}, {params}")
 
 
+@pytest.mark.parametrize("T", [257, 360, 513, 1000])
+def test_f32_long_design_matches_plain_and_reference(T):
+    """The long-row design's arithmetic, emulated in the plan's chunks,
+    equals chip_pass_plain and the JAX evaluate_chips on adversarial fleets
+    of ragged chip counts, with rows behind invalid padding and special
+    values (busy, NaN, +-inf, -0.0, subnormal, negative) in a row's last
+    sample, the last chunk's."""
+    rng = np.random.default_rng(2000 + T)
+    candidates = 0
+    for C in (1, 5, 131, 1003):
+        tc, hbm, valid, age = f32_edge_fleet(rng, C, T)
+        plan = kernels._choose_plan_f32(C, T)
+        assert isinstance(plan, kernels.PlanLong)
+        for params in F32_PARAMS:
+            parr = np.array(params, np.float32)
+            want = tp.chip_pass_plain(*to_torch(tc, hbm, valid, age, parr)).numpy()
+            np.testing.assert_array_equal(jax_evaluate_chips(tc, hbm, valid, age, parr), want)
+            got = emulate_long_design(tc, hbm, valid, age, parr, plan)
+            np.testing.assert_array_equal(got, want.astype(np.uint8),
+                                          err_msg=f"C={C}, {plan}, {params}")
+            candidates += int(want.sum())
+    assert candidates > 0
+
+
 def test_chip_pass_empty_fleet_launches_nothing():
     tp.reset_launches()
     empty = torch.empty((0, 8))
     out = tp.chip_pass(empty, empty, empty.bool(), torch.empty(0), torch.tensor([2100.0, 1.0]))
     assert out.shape == (0,) and out.dtype == torch.bool
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0}
-    assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "warps": 0}
+    assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0, "warps": 0}
+    long_empty = torch.empty((0, 360))
+    out = tp.chip_pass(long_empty, long_empty, long_empty.bool(), torch.empty(0),
+                       torch.tensor([2100.0, 1.0]))
+    assert out.shape == (0,) and kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0,
+                                                                 "warps": 0}
 
 
 def dump_at_width(rng, C: int, T: int, S: int) -> dict:

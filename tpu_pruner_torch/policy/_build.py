@@ -38,6 +38,8 @@ SIGNATURES = {
     "tp_chip_pass_q_rows": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
     # ..., num_chips, num_samples, then kernels.PlanGroups in order, then the stream
     "tp_chip_pass_groups": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
+    # ..., num_chips, num_samples, then kernels.PlanLong in order, then the stream
+    "tp_chip_pass_long": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
 }
 SOURCE = CSRC / "chip_pass.cu"
 LIBRARY = BUILD_DIR / "libchip_pass.so"

@@ -12,12 +12,14 @@
 // size of 131,072 chips x 360 samples the f32 pass moves 425,328,648 B
 // (127 us at 3.35 TB/s) and the int8 pass 95,027,208 B (28.4 us).
 //
-// tp_chip_pass has two designs; kernels._choose_plan_f32 picks one per
+// tp_chip_pass has three designs; kernels._choose_plan_f32 picks one per
 // launch from the row length. The group design (below) takes rows of up to
-// 256 samples, such as an audit dump's 8; the warp design takes longer
-// rows: one warp per chip row, lanes striding over the samples with
-// coalesced scalar loads, a shuffle reduction across the warp, and lane 0
-// applying the gates.
+// 256 samples, such as an audit dump's 8; the long-row design (below) takes
+// longer rows, such as the 360 of the example fleet. The warp design, the
+// first port, is kept as the timing control and runs only when a caller
+// forces its plan: one warp per chip row, lanes striding over the samples
+// with one scalar load of each array in flight, a shuffle reduction across
+// the warp, and lane 0 loading the age and applying the gates.
 //
 // tp_chip_pass_q has two designs; kernels._choose_plan_q picks one per
 // launch. The row design takes short rows (T in RowsT below: T <= 64 and at
@@ -669,6 +671,35 @@ bool rows_plan_ok(const RowsArgs& a, int64_t T, int64_t rows, int64_t grid) {
 //     masked to the group;
 //   - needs no shared memory, no alignment and no template on T, so views
 //     off a 16-byte boundary take it as they are.
+
+// A lane's K samples of each array of one row: samples first, first +
+// stride, ..., those below T. load issues every load before any
+// arithmetic; fold adds the same samples to the row's peaks.
+template <int K>
+struct LaneSamples {
+    float tc[K], hbm[K];
+    uint8_t valid[K];
+    __device__ __forceinline__ void load(const float* __restrict__ tc_row,
+                                         const float* __restrict__ hbm_row,
+                                         const uint8_t* __restrict__ valid_row, int first,
+                                         int stride, int T, bool live) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            const int t = first + j * stride;
+            const bool in = live && t < T;
+            valid[j] = in ? __ldg(valid_row + t) : 0;
+            tc[j] = in ? __ldg(tc_row + t) : 0.0f;
+            hbm[j] = in ? __ldg(hbm_row + t) : 0.0f;
+        }
+    }
+    __device__ __forceinline__ void fold(RowPeaks& p, int first, int stride, int T,
+                                         bool live) const {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+            if (live && first + j * stride < T) p.add(tc[j], hbm[j], valid[j] != 0);
+    }
+};
+
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 chip_pass_groups_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
@@ -686,26 +717,15 @@ chip_pass_groups_kernel(const float* __restrict__ tc, const float* __restrict__ 
     const int64_t base = row * num_samples;
 
     // every load before any arithmetic, the age and the parameters included
-    float x_tc[K], x_hbm[K];
-    uint8_t x_valid[K];
-    bool in[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-        const int t = lane_in_row + j * lanes;
-        in[j] = live && t < num_samples;
-        x_valid[j] = in[j] ? __ldg(valid + base + t) : 0;
-        x_tc[j] = in[j] ? __ldg(tc + base + t) : 0.0f;
-        x_hbm[j] = in[j] ? __ldg(hbm + base + t) : 0.0f;
-    }
+    LaneSamples<K> x;
+    x.load(tc + base, hbm + base, valid + base, lane_in_row, lanes, num_samples, live);
     const bool leader = live && lane_in_row == 0;
     const float row_age = leader ? __ldg(age + row) : 0.0f;
     const float lookback = flush_subnormal(__ldg(params));
     const float cutoff = flush_subnormal(__ldg(params + 1));
 
     RowPeaks p;
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-        if (in[j]) p.add(x_tc[j], x_hbm[j], x_valid[j] != 0);
+    x.fold(p, lane_in_row, lanes, num_samples, live);
     // xor offsets below L stay inside the row's aligned group of lanes
     for (int off = lanes >> 1; off > 0; off >>= 1) {
         const float other_tc = __shfl_xor_sync(kFullMask, p.tc.max, off);
@@ -755,6 +775,82 @@ bool groups_plan_ok(const F32Args& a, int64_t T, int64_t lanes, int64_t k, int64
     const int64_t per_block = kWarpsPerBlock * (32 / lanes);
     return a.num_chips > 0 && grid <= 0x7fffffff && (grid - 1) * per_block < a.num_chips &&
            a.num_chips <= grid * per_block;
+}
+
+// ── f32 pass for long rows: a warp a row, in chunks of 32 K samples ────────
+//
+// Above 256 samples the group design runs out of lanes, and the warp design
+// reaches 55-59% of its bound at T = 360 on the H100 (PERF.md): a lane
+// keeps one sample of each array in flight, and loads the age only after
+// the row's three reductions. The long-row design:
+//   - gives a row one warp and walks it in chunks of 32 K samples, K = 12
+//     or 16 (kernels._plan_long: 16 when that takes the row in one chunk
+//     and 12 does not, else 12; T = 360 is one chunk of 12);
+//   - issues every load of a chunk (3 K a lane) before folding it, and the
+//     row's age and the parameters before the first chunk, so a warp keeps
+//     about 9 * 32 K bytes in flight where the warp design keeps 288;
+//   - loads the next chunk only after folding this one: two register
+//     buffers (the next chunk in flight during the fold) measured slower
+//     on the H100 in an exploratory build, since they double the samples a
+//     thread holds in registers and so cut the warps an SM can hold, which
+//     keep more bytes in flight than a second buffer does;
+//   - folds the lanes with xor shuffles and takes the NaN and has-data
+//     flags from warp votes, as the group design does;
+//   - needs no shared memory and no alignment, so views off a 16-byte
+//     boundary take it as they are, and no limit on T.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+chip_pass_long_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
+                      const uint8_t* __restrict__ valid, const float* __restrict__ age,
+                      const float* __restrict__ params, uint8_t* __restrict__ out,
+                      int64_t num_chips, int num_samples) {
+    constexpr int kChunk = 32 * K;
+    const int lane = threadIdx.x & 31;
+    const int64_t row = int64_t(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+    if (row >= num_chips) return;  // whole warp leaves together
+    const float* tc_row = tc + row * num_samples;
+    const float* hbm_row = hbm + row * num_samples;
+    const uint8_t* valid_row = valid + row * num_samples;
+
+    LaneSamples<K> x;
+    x.load(tc_row, hbm_row, valid_row, lane, 32, num_samples, true);
+    const float row_age = lane == 0 ? __ldg(age + row) : 0.0f;
+    const float lookback = flush_subnormal(__ldg(params));
+    const float cutoff = flush_subnormal(__ldg(params + 1));
+
+    RowPeaks p;
+    for (int t0 = 0;; t0 += kChunk) {
+        x.fold(p, t0 + lane, 32, num_samples, true);
+        if (t0 + kChunk >= num_samples) break;
+        x.load(tc_row, hbm_row, valid_row, t0 + kChunk + lane, 32, num_samples, true);
+    }
+    p.tc.warp_reduce();
+    p.hbm.warp_reduce();
+    p.has_data = __any_sync(kFullMask, p.has_data);
+    if (lane == 0) out[row] = verdict_f32(p, row_age, lookback, cutoff);
+}
+
+// The samples a lane of a chunk of the long-row design (kernels._F32_LONG_K).
+using LongK = std::integer_sequence<int, 12, 16>;
+
+template <int K>
+void launch_long_if(int k, const F32Args& a, int T, unsigned grid, cudaStream_t stream) {
+    if (k == K)
+        chip_pass_long_kernel<K><<<grid, kThreads, 0, stream>>>(
+            a.tc, a.hbm, a.valid, a.age, a.params, a.out, a.num_chips, T);
+}
+
+template <int... Ks>
+void launch_long(int k, std::integer_sequence<int, Ks...>, const F32Args& a, int T, unsigned grid,
+                 cudaStream_t stream) {
+    (launch_long_if<Ks>(k, a, T, grid, stream), ...);
+}
+
+// a warp a row; T leaves room for a chunk past it in 32-bit sample indices
+bool long_plan_ok(const F32Args& a, int64_t T, int64_t k, int64_t grid) {
+    if (!contains(int(k), LongK{}) || T < 1 || T > (int64_t(1) << 30)) return false;
+    return a.num_chips > 0 && grid <= 0x7fffffff &&
+           (grid - 1) * kWarpsPerBlock < a.num_chips && a.num_chips <= grid * kWarpsPerBlock;
 }
 
 }  // namespace
@@ -816,6 +912,20 @@ int tp_chip_pass_groups(const void* tc, const void* hbm, const void* valid, cons
     while ((int64_t(1) << log2_lanes) < lanes) ++log2_lanes;
     launch_groups(int(samples), GroupsK{}, a, int(num_samples), log2_lanes, unsigned(grid),
                   static_cast<cudaStream_t>(stream));
+    return int(cudaGetLastError());
+}
+
+// The long-row design of tp_chip_pass; samples (a lane a chunk) and grid
+// are kernels.PlanLong in order.
+int tp_chip_pass_long(const void* tc, const void* hbm, const void* valid, const void* age,
+                      const void* params, void* out, int64_t num_chips, int64_t num_samples,
+                      int64_t samples, int64_t grid, void* stream) {
+    const F32Args a{static_cast<const float*>(tc), static_cast<const float*>(hbm),
+                    static_cast<const uint8_t*>(valid), static_cast<const float*>(age),
+                    static_cast<const float*>(params), static_cast<uint8_t*>(out), num_chips};
+    if (!long_plan_ok(a, num_samples, samples, grid)) return int(cudaErrorInvalidValue);
+    launch_long(int(samples), LongK{}, a, int(num_samples), unsigned(grid),
+                static_cast<cudaStream_t>(stream));
     return int(cudaGetLastError());
 }
 

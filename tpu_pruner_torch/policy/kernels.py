@@ -8,7 +8,9 @@ each row to one verdict: a bandwidth-bound pass with no tensor-core work.
   ``csrc/chip_pass.cu``, which replaces ``_chip_kernel``, in one of two
   designs that ``_choose_plan_f32`` picks: the group design
   (``tp_chip_pass_groups``) for short rows, such as an audit dump's, and
-  the warp design for the rest;
+  the long-row design (``tp_chip_pass_long``) for the rest; the first
+  port's warp design runs only where a caller forces its plan, as the
+  timing control;
 - ``chip_pass_q`` (int8 samples, -1 = invalid) launches ``tp_chip_pass_q``,
   which replaces ``_chip_kernel_q``, in one of two designs that
   ``_choose_plan_q`` picks: the row design (``tp_chip_pass_q_rows``) for
@@ -41,7 +43,7 @@ _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
 LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0}
 DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
-F32_DESIGN_LAUNCHES = {"groups": 0, "warps": 0}  # chip_pass's launches, by design
+F32_DESIGN_LAUNCHES = {"groups": 0, "long": 0, "warps": 0}  # chip_pass's, by design
 
 
 def reset_launches() -> None:
@@ -113,10 +115,13 @@ def chip_pass(tc, hbm, valid, age, params) -> torch.Tensor:
 
 # Launch plans of tp_chip_pass. Rows of up to _F32_GROUPS_MAX_T samples take
 # the group design: a power of two of lanes a row, each lane up to 4 samples
-# of a row of at most 8, else up to 8; longer rows the warp design, one warp
-# a row. Where each measured faster on the H100 is in PERF.md.
+# of a row of at most 8, else up to 8; longer rows the long-row design, one
+# warp a row walked in chunks of 32 * K samples. The warp design (one warp
+# a row, one sample of each array in flight a lane) is only forced, as the
+# timing control. Where each measured faster on the H100 is in PERF.md.
 _F32_GROUPS_MAX_T = 256
 _F32_GROUPS_K = frozenset({4, 8})  # samples a lane with a kernel (GroupsK)
+_F32_LONG_K = frozenset({12, 16})  # samples a lane a chunk with a kernel (LongK)
 _F32_WARPS_PER_BLOCK = 8  # kWarpsPerBlock in csrc/chip_pass.cu
 
 
@@ -130,7 +135,12 @@ class PlanGroups(NamedTuple):
     grid: int              # blocks of _F32_WARPS_PER_BLOCK warps, 32 / lanes rows each
 
 
-F32_DESIGNS = {PlanWarps: "warps", PlanGroups: "groups"}
+class PlanLong(NamedTuple):
+    samples_per_lane: int  # one of _F32_LONG_K: a chunk is 32 * this samples
+    grid: int              # blocks of _F32_WARPS_PER_BLOCK warps, one row each
+
+
+F32_DESIGNS = {PlanWarps: "warps", PlanGroups: "groups", PlanLong: "long"}
 
 
 def _plan_groups(num_chips: int, num_samples: int) -> PlanGroups:
@@ -140,37 +150,46 @@ def _plan_groups(num_chips: int, num_samples: int) -> PlanGroups:
     return PlanGroups(lanes, k, _cdiv(num_chips, _F32_WARPS_PER_BLOCK * (32 // lanes)))
 
 
-def _choose_plan_f32(num_chips: int, num_samples: int) -> PlanWarps | PlanGroups:
+def _plan_long(num_chips: int, num_samples: int) -> PlanLong:
+    """Launch plan of the long-row design for [num_chips, num_samples] rows:
+    16 samples a lane where that takes the row in one chunk and 12 do not,
+    else 12, which measured faster on the H100 for rows of several chunks."""
+    k = 16 if 32 * 12 < num_samples <= 32 * 16 else 12
+    return PlanLong(k, _cdiv(num_chips, _F32_WARPS_PER_BLOCK))
+
+
+def _choose_plan_f32(num_chips: int, num_samples: int) -> PlanGroups | PlanLong:
     """The design of tp_chip_pass and its launch plan: the group design up
-    to _F32_GROUPS_MAX_T samples a row, the warp design above."""
+    to _F32_GROUPS_MAX_T samples a row, the long-row design above."""
     if num_samples <= _F32_GROUPS_MAX_T:
         return _plan_groups(num_chips, num_samples)
-    return PlanWarps(_cdiv(num_chips, _F32_WARPS_PER_BLOCK))
+    return _plan_long(num_chips, num_samples)
 
 
 def _f32_plans(num_chips: int, num_samples: int) -> dict:
     """{design: plan} of every design of tp_chip_pass that takes
-    [num_chips, num_samples] rows."""
-    plans = {"warps": PlanWarps(_cdiv(num_chips, _F32_WARPS_PER_BLOCK))}
-    if num_samples <= _F32_GROUPS_MAX_T:
-        plans["groups"] = _plan_groups(num_chips, num_samples)
-    return plans
+    [num_chips, num_samples] rows: the plan's and the warp design."""
+    plan = _choose_plan_f32(num_chips, num_samples)
+    return {"warps": PlanWarps(_cdiv(num_chips, _F32_WARPS_PER_BLOCK)),
+            F32_DESIGNS[type(plan)]: plan}
 
 
-def _launch_f32(tc, hbm, valid, age, params, plan: PlanWarps | PlanGroups) -> torch.Tensor:
+def _launch_f32(tc, hbm, valid, age, params,
+                plan: PlanWarps | PlanGroups | PlanLong) -> torch.Tensor:
     """tp_chip_pass in the design of ``plan`` on CUDA tensors that chip_pass
     has checked (C > 0); returns the uint8[C] verdicts. The C entry points
     refuse a plan that does not fit the inputs."""
     C, T = tc.shape
     out = torch.empty(C, dtype=torch.uint8, device=tc.device)
     lib = _build.load()
-    groups = isinstance(plan, PlanGroups)
-    entry = lib.tp_chip_pass_groups if groups else lib.tp_chip_pass
+    warps = isinstance(plan, PlanWarps)
+    entry = {PlanWarps: lib.tp_chip_pass, PlanGroups: lib.tp_chip_pass_groups,
+             PlanLong: lib.tp_chip_pass_long}[type(plan)]
     with torch.cuda.device(tc.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = entry(tc.data_ptr(), hbm.data_ptr(), valid.view(torch.uint8).data_ptr(),
                        age.data_ptr(), params.data_ptr(), out.data_ptr(), C, T,
-                       *(plan if groups else ()), stream)
+                       *(() if warps else plan), stream)
     _build.check(status, entry.__name__)
     LAUNCHES["chip_pass"] += 1
     F32_DESIGN_LAUNCHES[F32_DESIGNS[type(plan)]] += 1
