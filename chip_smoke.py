@@ -8,9 +8,17 @@ Phases, each of which exits non-zero on failure:
    (a second nvcc with -Xptxas -v, started with the build; the int8 pass's
    row design at T = 12, and its registers and spills over every T it has a
    kernel for; the f32 pass's group design for each samples-a-lane it has a
-   kernel for, and its long-row design for each samples a lane a chunk),
-   and print the card's name and power limit;
-2. hold each kernel against its plain PyTorch version on an adversarial
+   kernel for, and its long-row design for each samples a lane a chunk;
+   the slice gate), and print the card's name and power limit;
+2. hold the slice gate against its plain version bit for bit on
+   gate_cases (bounds outside [0, C], out of order, empty, inverted and
+   one-chip slices in five integer dtypes, differences that wrap in int32
+   and int64, one slice of all chips, 1-chip slices, random uneven fleets
+   with busy chips at a slice's first and last chip, 16-chip slices mixed
+   with long ones, S = 0, C = 0, the main path's shapes, a mixed fleet of
+   1,048,576 chips), the candidate at four offsets off a 16-byte boundary,
+   one launch a case (none where S = 0); then hold each
+   chip pass against its plain PyTorch version on an adversarial
    fleet (ragged chip counts, T in {1, 12, 31, 360, 361}, all-invalid rows,
    NaN, subnormals, -0.0, +-inf, finite/+inf/subnormal cutoffs, young
    pods): the masks must be equal, and so must the card's int8 quantizer
@@ -33,9 +41,10 @@ Phases, each of which exits non-zero on failure:
    evaluate_fleet(_cuda) and evaluate_fleet_q(_cuda); int16, uint8 and f32
    samples on the int8 paths (q_input_cases) through evaluate_fleet_q, _qc,
    _qu and evaluate_fleet_cuda_q, _qc; and bounds outside [0, C] through
-   evaluate_fleet_c, _qc and evaluate_fleet_cuda_qc: the CPU's verdicts,
-   each kernel equal to its plain version, and both kernels launch, and
-   equal their plain versions, after the bad-bounds case;
+   evaluate_fleet_c, _qc and evaluate_fleet_cuda_qc (each one launch of
+   its pass and of the slice gate): the CPU's verdicts, each kernel equal
+   to its plain version, and every kernel launches, and equals its plain
+   version, after the bad-bounds case;
 3. drive the main path at full width -- 131,072 chips x 360 samples in
    8,192 slices -- through evaluate_fleet, evaluate_fleet_c,
    quantize_fleet_inputs + evaluate_fleet_qc, the uniform path
@@ -47,9 +56,11 @@ Phases, each of which exits non-zero on failure:
    verdicts must also equal evaluate_fleet's on load_fleet's arrays, with
    its host wall time; verdicts must equal the
    fleet's expected verdicts, each path (counts zeroed just before it, read
-   just after) must launch its own kernel exactly once and the other kernel
-   never, and each kernel must equal its plain version on the main path's
-   inputs;
+   just after) must launch its own pass exactly once and the other never,
+   and the slice gate exactly once on every contiguous path (_c, _qc,
+   evaluate_fleet_cuda_qc, analyze's evaluation and CLI without --shard)
+   and never elsewhere, and each kernel must equal its plain version on the
+   main path's inputs;
 4. time each kernel with CUDA events (median over many launches) beside
    its plain version and its bound at the card's published rates: warm
    (back to back) and cold (a 256 MB scratch buffer zeroed before each
@@ -63,8 +74,11 @@ Phases, each of which exits non-zero on failure:
    cycle in each form (update_window_ in place, or update_window with fresh
    rings, + evaluate_window_qc or _qu): device time, warm and cold, from
    replays of a CUDA graph of one call, eager host wall time per call, and
-   for the four evaluate_fleet paths the device operations one eager call
-   puts on the card, from a torch.profiler trace (launch_counts). All of it
+   for the four evaluate_fleet paths and the two in-place cycles the device
+   operations one eager call puts on the card, each with its traced device
+   time, from a torch.profiler trace (launch_counts); and the slice gate on
+   the fleet's own candidate, warm and cold beside its bound, its plain
+   version and an empty kernel. All of it
    twice: on the main path's fleet, and at bench.py's XL point, 1,048,576
    chips x 360 samples in 65,536 slices, built on the card with a seeded
    torch.Generator, whose qc, qu and f32 verdicts and both kernels are
@@ -74,7 +88,11 @@ Phases, each of which exits non-zero on failure:
    Then the f32 kernel at the dump's width, 8 samples a chip with padded
    short series, in each design at the same three sizes, warm and cold,
    beside its bound, its plain version and an empty kernel;
-   evaluate_fleet_c end to end at 131,072 x 8; and the f32 designs for
+   evaluate_fleet_c end to end at 131,072 x 8, with its device operations;
+   the slice gate on one slice of 1,048,576 chips, on 1,048,576 slices
+   of one chip, on mixed fleets (16-chip slices and one each of 4,096,
+   8,960 and 65,536 chips) and by average slice length at 131,072 and
+   1,048,576 chips (gate_fleets); and the f32 designs for
    each T of f32_timing_t(C) at the three sizes (rows of 1 to 2,880
    samples; the long-row design also at its other samples a lane), and
    where the plan's design was not the fastest;
@@ -83,10 +101,12 @@ Phases, each of which exits non-zero on failure:
    _qu must equal evaluate_fleet_qc over the last <= 12 chunks and the
    verdicts the chunks were built for; some slices turn idle exactly when
    their busy chunk is evicted; each window evaluation launches the int8
-   kernel once; the rings of update_window_ (the counted cycle, as
-   analyze --stream runs it) equal those of update_window every cycle;
+   kernel once, and the qc evaluation the slice gate once; the rings of
+   update_window_ (the counted cycle, as analyze --stream runs it) equal
+   those of update_window every cycle;
 6. every sharded evaluator and the stream step in a one-rank NCCL group
-   (file:// rendezvous), at full width, against the single-device results;
+   (file:// rendezvous), at full width, against the single-device results
+   (no slice gate: the sharded qc path all-reduces slice counts);
 7. dryrun_multichip(4) with gloo: four ranks on the one card, each running
    every sharded path on its rows of a 131,072 x 360 fleet (the uneven
    case 131,069 chips) against the single-device results; each rank
@@ -102,10 +122,12 @@ Phases, each of which exits non-zero on failure:
    name and power limit.
 
 The line before the last is {"kernels": [...]}, with each kernel's launches
-per path of phases 3 and 5-7, its launches by design in phases 3, 5 and 6
+per path of phases 3 and 5-7, the passes' launches by design in phases 3, 5
+and 6
 and its XL times under "xl" (the int8 kernel also its T = 12 times under
 "window" and its sweep under "design_sweep", the f32 kernel its times at
-the dump's width and its sweep under "dump"); the line before
+the dump's width and its sweep under "dump", the slice gate, which has no
+Pallas counterpart, its other fleets and sweep under "fleets"); the line before
 it is {"end_to_end": {...}}, phase 4's end-to-end times at both sizes; the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -146,7 +168,7 @@ from tpu_pruner_torch.policy.kernels import (
     _F32_GROUPS_K, _F32_GROUPS_MAX_T, _F32_LONG_K, _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES,
     _F32_WARPS_PER_BLOCK, F32_DESIGN_LAUNCHES, F32_DESIGNS, PlanLong, PlanRows, PlanWarps,
     _choose_plan_f32, _choose_plan_q, _f32_plans, _launch_f32, _launch_q, _plan_q, _plan_q_rows,
-    _sm_count)
+    _sm_count, slice_gate, slice_gate_plain)
 from tpu_pruner_torch.policy.sharded import run_local, run_stream_local
 
 CHIPS, SAMPLES, SLICES = 131072, 360, 8192
@@ -170,7 +192,8 @@ SOURCE = "tpu_pruner_torch/policy/csrc/chip_pass.cu"
 KERNEL_SYMBOLS = {"chip_pass, warp design": "chip_pass_kernel",
                   "chip_pass_q": "chip_pass_q_kernel",
                   f"chip_pass_q, row design, T={WINDOW_CHUNKS}":
-                  f"chip_pass_q_rows_kernelILi{WINDOW_CHUNKS}E"}
+                  f"chip_pass_q_rows_kernelILi{WINDOW_CHUNKS}E",
+                  "slice_gate, int32 bounds": "slice_gate_kernelIiE"}
 # templated kernels: name -> (symbol pattern, the instantiations the plan uses)
 INSTANTIATIONS = {
     "chip_pass_q, row design, T": (r"chip_pass_q_rows_kernelILi(\d+)E", _Q_ROWS_T),
@@ -488,6 +511,150 @@ def phase_f32_designs(dev) -> int:
     return err
 
 
+# Bounds outside [0, C] on 16 chips (chips 5 and 14 busy), as
+# tests/test_torch_parity.py's BOUND_CASES, and bounds whose difference
+# wraps: in int32 (-2^31 to 2^31 - 1 is -1, the reverse 1, over all chips)
+# and in int64 (differences of 2^32 and more; the int64 extremes).
+GATE_BOUND_CASES = {
+    "past the end": [0, 4, 8, 12, 20],
+    "far negative": [-40, -17, -3, 0, 16],
+    "out of order, past the end": [0, 4, 20, 8, 16],
+    "all past the end": [0, 100, 200, 300, 400],
+    "negative, descending past the start": [-1, -2, -3, -17, -18],
+    "empty, inverted and one-chip slices": [3, 3, 2, 6, 7, 7, 8, 15, 16, 16],
+}
+GATE_WRAP_CASES = {
+    "int32 wrap": (np.int32, [-2**31, 2**31 - 1, -2**31, 5, 6, 2**31 - 1, 0]),
+    "int64 wrap": (np.int64, [0, 2**32 + 8, 2**33 + 9, 3, 3 + 2**32, -2**32 + 2, 7,
+                              2**31 + 7, 2**32 + 1, -2**63, 2**63 - 1, 4, 2**31 + 4]),
+}
+GATE_OFFSETS = (0, 1, 7, 15)  # the candidate's bytes off a 16-byte boundary
+
+
+MIXED = "mixed: 16-chip slices, one of 4,096, 8,960 and 65,536 chips"
+MIXED_LONG = {100: 4096, 701: 8960, 1202: 65536}  # slice index -> its chips
+
+
+def mixed_sizes(num_chips: int) -> np.ndarray:
+    """Slice sizes of a heterogeneous fleet of num_chips chips: 16-chip
+    slices, with the long ones of MIXED_LONG among them."""
+    short = num_chips - sum(MIXED_LONG.values())
+    assert short % 16 == 0 and short // 16 > max(MIXED_LONG), num_chips
+    sizes = np.full(short // 16 + len(MIXED_LONG), 16, np.int64)
+    for at, chips in MIXED_LONG.items():
+        sizes[at] = chips
+    return sizes
+
+
+def gate_fleet(rng, sizes, busy_per_slice=3) -> tuple:
+    """Candidate bytes (bool[C]) and sorted int32 bounds for slices of the
+    given sizes: every other slice idle, the rest with up to busy_per_slice
+    busy chips, at the slice's first chip, its last, or anywhere."""
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    cand = np.ones(int(bounds[-1]), bool)
+    for s, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if s % 2 == 0 or hi == lo:
+            continue
+        where = rng.integers(0, 3)
+        at = [lo] if where == 0 else [hi - 1] if where == 1 else \
+            rng.integers(lo, hi, size=rng.integers(1, busy_per_slice + 1))
+        cand[np.asarray(at)] = False
+    return cand, bounds
+
+
+def gate_cases(seed: int, large: bool = False) -> dict:
+    """name -> (candidate bool[C], bounds [S+1]) as numpy: the slice gate's
+    adversarial inputs. Bounds outside [0, C], out of order, empty,
+    inverted and one-chip slices, in int32, int64, int8, int16 and uint8;
+    differences that wrap in int32 and int64; slices of 1 chip; one slice of
+    all chips, idle or with one busy chip at its first, middle or last
+    chip; random fleets of uneven slices (some empty) whose busy chips sit
+    at a slice's first or last chip or anywhere, also with a tenth of the
+    bounds thrown outside [0, C]; S = 0 and C = 0. With large, also the
+    main path's shapes, 131,072 chips in 8,192 slices, and one slice of
+    1,048,576 chips."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    cand16 = np.ones(16, bool)
+    cand16[[5, 14]] = False
+    for name, b in GATE_BOUND_CASES.items():
+        for dtype in (np.int32, np.int64, np.int8, np.int16, np.uint8):
+            cases[f"{name}, {np.dtype(dtype).name}"] = (cand16, np.array(b).astype(dtype))
+    cand40 = np.ones(40, bool)
+    cand40[[0, 6, 39]] = False
+    for name, (dtype, b) in GATE_WRAP_CASES.items():
+        cases[name] = (cand40, np.array(b, dtype))
+    for C in (1, 17, 1003):
+        cand = rng.uniform(size=C) < 0.9
+        cases[f"1-chip slices, C={C}"] = (cand, np.arange(C + 1, dtype=np.int32))
+    for C in (1, 1003, 70001) + ((1048576,) if large else ()):
+        b = np.array([0, C], np.int32)
+        cases[f"one slice of {C} chips, idle"] = (np.ones(C, bool), b)
+        for where, at in (("first", 0), ("middle", C // 2), ("last", C - 1)):
+            cand = np.ones(C, bool)
+            cand[at] = False
+            cases[f"one slice of {C} chips, busy at its {where} chip"] = (cand, b)
+    sizes = (rng.integers(0, 40, size=97) * (rng.uniform(size=97) < 0.9)).astype(np.int64)
+    cand, bounds = gate_fleet(rng, sizes)
+    cases["97 uneven slices, some empty"] = (cand, bounds)
+    thrown = bounds.copy()
+    at = rng.uniform(size=thrown.size) < 0.1
+    thrown[at] = rng.integers(-2 * cand.size, 2 * cand.size, size=int(at.sum()))
+    cases["97 uneven slices, a tenth of the bounds thrown"] = (cand, thrown)
+    cases["3 slices of 20,000-30,000 chips"] = gate_fleet(rng, [20000, 30001, 25000])
+    cases[MIXED] = gate_fleet(rng, mixed_sizes(102592))
+    cases["2,500 uneven slices of 0-240 chips"] = gate_fleet(rng, rng.integers(0, 241, 2500))
+    cases["S = 0"] = (cand16, np.array([4], np.int32))
+    cases["C = 0"] = (np.ones(0, bool), np.array([0, 0, 3, -1, 2, 2], np.int32))
+    if large:
+        cases[f"{CHIPS} chips in {SLICES} slices"] = gate_fleet(rng, np.full(SLICES, CPS))
+        cases[f"{CHIPS} chips in 5,000 uneven slices"] = gate_fleet(
+            rng, rng.multinomial(CHIPS, np.full(5000, 1 / 5000)))
+        cases[f"{XL_CHIPS} chips, {MIXED}"] = gate_fleet(rng, mixed_sizes(XL_CHIPS))
+    return cases
+
+
+def gate_on(dev, x: np.ndarray, k: int) -> torch.Tensor:
+    """bool x on the card, its data pointer k bytes past a 16-byte boundary."""
+    flat = torch.empty(x.size + 32, dtype=torch.bool, device=dev)
+    at = (-flat.data_ptr()) % 16 + k
+    view = flat[at:at + x.size]
+    view.copy_(torch.from_numpy(x).to(dev))
+    return view
+
+
+def phase_gate(dev) -> int:
+    """The slice gate on gate_cases, the candidate at each of GATE_OFFSETS:
+    bit-equal to its plain version on the card and on the CPU, one launch a
+    case and none where S = 0."""
+    t0 = time.perf_counter()
+    err, launches = 0, 0
+    cases = gate_cases(1357, large=True)
+    for name, (cand_np, bounds_np) in cases.items():
+        bounds_cpu = torch.from_numpy(bounds_np)
+        bounds = bounds_cpu.to(dev)
+        S = bounds_np.size - 1
+        want_cpu = slice_gate_plain(torch.from_numpy(cand_np), bounds_cpu)
+        for k in GATE_OFFSETS:
+            cand = gate_on(dev, cand_np, k)
+            want = slice_gate_plain(cand, bounds)
+            check(torch.equal(want.cpu(), want_cpu), f"gate {name}: the plain version differs "
+                  "between the card and the CPU")
+            before = LAUNCHES["slice_gate"]
+            got = slice_gate(cand, bounds)
+            check(LAUNCHES["slice_gate"] - before == int(S > 0),
+                  f"gate {name}, offset {k}: {LAUNCHES['slice_gate'] - before} launches")
+            launches += LAUNCHES["slice_gate"] - before
+            check(torch.equal(got, want), f"slice_gate != plain for {name}, offset {k}: "
+                  f"{int((got != want).sum())} slices differ")
+            err = max(err, mask_err(got, want))
+    torch.cuda.synchronize()
+    log(f"phase 2: slice_gate equals its plain version bit for bit on {len(cases)} "
+        f"bounds cases x {len(GATE_OFFSETS)} candidate offsets ({launches} launches), "
+        f"{time.perf_counter() - t0:.3f} s")
+    return err
+
+
 INPUT_SLICES = 64
 
 
@@ -648,21 +815,24 @@ def q_input_check(dev, name: str, make) -> int:
     def qu(x):
         return evaluate_fleet_qu(x[0], x[1], x[2], x[4], Q_CHIPS // INPUT_SLICES)
 
-    runs = {
-        "evaluate_fleet_q": (q, q),
+    runs = {  # path: (run on the card, run on the CPU, slice_gate launches)
+        "evaluate_fleet_q": (q, q, 0),
         "evaluate_fleet_cuda_q": (lambda x: evaluate_fleet_cuda_q(*x, num_slices=INPUT_SLICES),
-                                  q),
-        "evaluate_fleet_qc": (qc, qc),
+                                  q, 0),
+        "evaluate_fleet_qc": (qc, qc, 1),
         "evaluate_fleet_cuda_qc": (lambda x: evaluate_fleet_cuda_qc(
-            x[0], x[1], x[2], bounds(x), x[4]), qc),
-        "evaluate_fleet_qu": (qu, qu),
+            x[0], x[1], x[2], bounds(x), x[4]), qc, 1),
+        "evaluate_fleet_qu": (qu, qu, 0),
     }
-    for path, (run, on_cpu) in runs.items():
-        before = LAUNCHES["chip_pass_q"]
+    for path, (run, on_cpu, gates) in runs.items():
+        before = dict(LAUNCHES)
         v, c = run(gpu)
         torch.cuda.synchronize()
-        check(LAUNCHES["chip_pass_q"] == before + 1,
-              f"{name}: {path} launched chip_pass_q {LAUNCHES['chip_pass_q'] - before} times")
+        check(LAUNCHES["chip_pass_q"] == before["chip_pass_q"] + 1
+              and LAUNCHES["slice_gate"] == before["slice_gate"] + gates,
+              f"{name}: {path} launched chip_pass_q "
+              f"{LAUNCHES['chip_pass_q'] - before['chip_pass_q']} times and slice_gate "
+              f"{LAUNCHES['slice_gate'] - before['slice_gate']}, expected 1 and {gates}")
         want_v, want_c = on_cpu(cpu)
         check(torch.equal(v.cpu(), want_v) and torch.equal(c.cpu(), want_c)
               and torch.equal(c, kernel),
@@ -674,9 +844,9 @@ def q_input_check(dev, name: str, make) -> int:
 def bounds_input_check(dev, make) -> None:
     """Slice bounds outside [0, C] (past the end, far negative, a few from
     the end, and out of order) through evaluate_fleet_c, evaluate_fleet_qc
-    and evaluate_fleet_cuda_qc on the card, against the CPU's: the
-    reduction reads them as the reference's clamping gather does, and the
-    card asserts nothing."""
+    and evaluate_fleet_cuda_qc on the card, against the CPU's: each path
+    launches its pass and the slice gate once, the gate reads the bounds as
+    the reference's clamping gather does, and the card asserts nothing."""
     gpu, cpu = make(dev), make("cpu")
     gq, cq = quantize_fleet_inputs(gpu), quantize_fleet_inputs(cpu)
     C = gpu[0].shape[0]
@@ -693,11 +863,12 @@ def bounds_input_check(dev, make) -> None:
             *gq[:3], bad_g, gq[4]), want_qc),
     }
     for path, (kind, run, (want_v, want_c)) in runs.items():
-        before = LAUNCHES[kind]
+        before = dict(LAUNCHES)
         v, c = run()
         torch.cuda.synchronize()
-        check(LAUNCHES[kind] == before + 1, f"bad bounds: {path} launched {kind} "
-              f"{LAUNCHES[kind] - before} times")
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        check(launched == {**dict.fromkeys(LAUNCHES, 0), kind: 1, "slice_gate": 1},
+              f"bad bounds: {path} launched {launched}, expected {kind} and slice_gate once")
         check(torch.equal(v.cpu(), want_v) and torch.equal(c.cpu(), want_c),
               f"bad bounds: {path} on the card differs from the CPU's")
         check(0 < int(want_v.sum()) < INPUT_SLICES, f"bad bounds: {path} verdicts are vacuous")
@@ -716,17 +887,22 @@ def phase_engine_inputs(dev) -> int:
     f32_pass = normalize_inputs(*probe[:4], probe[5])
     q = quantize_fleet_inputs(probe)
     q_pass = normalize_inputs_q(*q[:3], q[4])
+    probe_bounds = slice_bounds(probe[4], INPUT_SLICES, device=dev)
     before = dict(LAUNCHES)
-    check(torch.equal(chip_pass(*f32_pass), chip_pass_plain(*f32_pass))
-          and torch.equal(chip_pass_q(*q_pass), chip_pass_q_plain(*q_pass)),
+    candidate = chip_pass(*f32_pass)
+    check(torch.equal(candidate, chip_pass_plain(*f32_pass))
+          and torch.equal(chip_pass_q(*q_pass), chip_pass_q_plain(*q_pass))
+          and torch.equal(slice_gate(candidate, probe_bounds),
+                          slice_gate_plain(candidate, probe_bounds)),
           "a kernel differs from its plain version after the bad bounds")
     torch.cuda.synchronize()
     check(all(LAUNCHES[k] == before[k] + 1 for k in LAUNCHES),
-          "both kernels must launch after the bad bounds")
+          "every kernel must launch after the bad bounds")
     log(f"phase 2: the engine on {len(cases)} input cases the wrappers refuse "
         f"({', '.join(cases)}), {len(q_cases)} q-sample cases ({', '.join(q_cases)}) "
         "and out-of-range bounds equals the CPU's plain versions, each kernel one launch "
-        "a path; both kernels launch, and equal their plain versions, after the bad bounds")
+        "a path (the slice gate on the qc paths); every kernel launches, and equals its plain "
+        "version, after the bad bounds")
     return err
 
 
@@ -778,9 +954,9 @@ F32_DESIGNS_BY_PATH = {}  # chip_pass's launches by design, per counted path
 
 def counted(by_path: dict, path: str, run):
     """run() with the kernel counts zeroed just before it and read just after;
-    the counts are recorded under path, each pass's designs under path in
-    DESIGNS_BY_PATH and F32_DESIGNS_BY_PATH (added up over repeated runs of
-    a path)."""
+    the counts are recorded under path, each kernel's designs under path in
+    DESIGNS_BY_PATH and F32_DESIGNS_BY_PATH (added up
+    over repeated runs of a path)."""
     reset_launches()
     out = run()
     torch.cuda.synchronize()
@@ -801,7 +977,8 @@ def expect_launches(by_path: dict, path: str, want: dict) -> None:
 def analyze_cli_check(dev, by_path: dict) -> None:
     """A small dump through the CLI: batch, --quantize, --shard [--quantize]
     (a one-rank group on the card) and two --stream cycles; each run must
-    launch its kernel once."""
+    launch its pass once, and the slice gate once where it evaluates on one
+    device (batch and --stream; --shard all-reduces slice counts instead)."""
     doc = {"hbm_threshold": 0.05, "chips": [
         {"slice": "ml/idle", "tc": [0.0] * 6, "hbm": [0.0] * 6, "pod_age_s": 7200},
         {"slice": "ml/busy", "tc": [0.0, 0.7, 0.0], "hbm": [0.1] * 3, "pod_age_s": 7200},
@@ -813,13 +990,16 @@ def analyze_cli_check(dev, by_path: dict) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dump.json")
         state = os.path.join(tmp, "state.npz")
-        runs = [("analyze CLI", [], "chip_pass"),
-                ("analyze CLI --quantize", ["--quantize"], "chip_pass_q"),
-                ("analyze CLI --shard", ["--shard"], "chip_pass"),
-                ("analyze CLI --shard --quantize", ["--shard", "--quantize"], "chip_pass_q"),
-                ("analyze CLI --stream (cycle 1)", ["--stream", state], "chip_pass_q"),
-                ("analyze CLI --stream (cycle 2)", ["--stream", state], "chip_pass_q")]
-        for cycle, (name, extra, kernel) in enumerate(runs):
+        runs = [("analyze CLI", [], {"chip_pass": 1, "slice_gate": 1}),
+                ("analyze CLI --quantize", ["--quantize"], {"chip_pass_q": 1, "slice_gate": 1}),
+                ("analyze CLI --shard", ["--shard"], {"chip_pass": 1, "slice_gate": 0}),
+                ("analyze CLI --shard --quantize", ["--shard", "--quantize"],
+                 {"chip_pass_q": 1, "slice_gate": 0}),
+                ("analyze CLI --stream (cycle 1)", ["--stream", state],
+                 {"chip_pass_q": 1, "slice_gate": 1}),
+                ("analyze CLI --stream (cycle 2)", ["--stream", state],
+                 {"chip_pass_q": 1, "slice_gate": 1})]
+        for cycle, (name, extra, launches) in enumerate(runs):
             with open(path, "w") as f:
                 json.dump({**doc, "timestamp": 1000.0 + 180 * cycle}, f)
             out, err = io.StringIO(), io.StringIO()
@@ -827,7 +1007,7 @@ def analyze_cli_check(dev, by_path: dict) -> None:
                 rc = counted(by_path, name,
                              lambda: analyze.main([path, "--device", dev.type, *extra]))
             check(rc == 0, f"{name} returned {rc}: {err.getvalue()}")
-            expect_launches(by_path, name, {kernel: 1})
+            expect_launches(by_path, name, launches)
             result = json.loads(out.getvalue().strip().splitlines()[-1])
             check(result["reclaimable_slices"] == ["ml/idle"] and result["idle_chips"] == 2,
                   f"{name} gave {result}")
@@ -875,7 +1055,7 @@ def analyze_dump_width_check(dev, by_path: dict) -> None:
             rc = counted(by_path, name, lambda: analyze.main([path, "--device", dev.type]))
         cli_s = time.perf_counter() - t0
         check(rc == 0, f"{name} returned {rc}: {err.getvalue()[-2000:]}")
-        expect_launches(by_path, name, {"chip_pass": 1})
+        expect_launches(by_path, name, {"chip_pass": 1, "slice_gate": 1})
         want_design = f32_expected_design(CHIPS, DUMP_SAMPLES)
         check(F32_DESIGNS_BY_PATH[name][want_design] == 1,
               f"{name} launched {F32_DESIGNS_BY_PATH[name]}, expected the {want_design} design")
@@ -924,23 +1104,27 @@ def phase_main_path(dev, by_path: dict):
         return evaluate_fleet_qu(q[0], q[1], q[2], q[4], CPS)[0]
 
     # Each path runs with the counts zeroed just before it and read just
-    # after: it must launch its own kernel exactly once and the other never.
+    # after: it must launch its own pass exactly once and the other never,
+    # and the slice gate once on the contiguous paths and never elsewhere.
     paths = {
-        "evaluate_fleet": ("chip_pass", lambda: evaluate_fleet(*inputs, num_slices=SLICES)[0]),
-        "evaluate_fleet_c": ("chip_pass", lambda: evaluate_fleet_c(
+        "evaluate_fleet": ("chip_pass", 0, lambda: evaluate_fleet(
+            *inputs, num_slices=SLICES)[0]),
+        "evaluate_fleet_c": ("chip_pass", 1, lambda: evaluate_fleet_c(
             tc, hbm, valid, age, bounds, parr)[0]),
-        "evaluate_fleet_qc": ("chip_pass_q", lambda: evaluate_fleet_qc(
+        "evaluate_fleet_qc": ("chip_pass_q", 1, lambda: evaluate_fleet_qc(
             q[0], q[1], q[2], bounds, q[4])[0]),
-        "evaluate_fleet_qu": ("chip_pass_q", uniform),
-        "analyze.evaluate_loaded": ("chip_pass", lambda: loaded(False)),
-        "analyze.evaluate_loaded --quantize": ("chip_pass_q", lambda: loaded(True)),
+        "evaluate_fleet_cuda_qc": ("chip_pass_q", 1, lambda: evaluate_fleet_cuda_qc(
+            q[0], q[1], q[2], bounds, q[4])[0]),
+        "evaluate_fleet_qu": ("chip_pass_q", 0, uniform),
+        "analyze.evaluate_loaded": ("chip_pass", 1, lambda: loaded(False)),
+        "analyze.evaluate_loaded --quantize": ("chip_pass_q", 1, lambda: loaded(True)),
     }
     t0 = time.perf_counter()
-    for path, (kernel, run) in paths.items():
+    for path, (kernel, gates, run) in paths.items():
         v = counted(by_path, path, run)
         v = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
         check(np.array_equal(v, expected), f"{path} verdicts")
-        expect_launches(by_path, path, {kernel: 1})
+        expect_launches(by_path, path, {kernel: 1, "slice_gate": gates})
     main_s = time.perf_counter() - t0
     analyze_cli_check(dev, by_path)
     analyze_dump_width_check(dev, by_path)
@@ -949,11 +1133,13 @@ def phase_main_path(dev, by_path: dict):
         f"{ {p: c for p, c in by_path.items()} })")
 
     # each kernel against its plain version on the main path's own inputs
+    candidate = chip_pass_q(q[0], q[1], q[2], q[4])
     err = {
         "chip_pass": mask_err(chip_pass(tc, hbm, valid, age, parr),
                               chip_pass_plain(tc, hbm, valid, age, parr)),
-        "chip_pass_q": mask_err(chip_pass_q(q[0], q[1], q[2], q[4]),
-                                chip_pass_q_plain(q[0], q[1], q[2], q[4])),
+        "chip_pass_q": mask_err(candidate, chip_pass_q_plain(q[0], q[1], q[2], q[4])),
+        "slice_gate": mask_err(slice_gate(candidate, bounds),
+                               slice_gate_plain(candidate, bounds)),
     }
     check(not any(err.values()), f"full-width kernel mismatch {err}")
     return inputs, expected, q, err
@@ -1030,37 +1216,48 @@ def forced_f32_plan(choose):
 
 def launch_counts(name: str, fn) -> dict | None:
     """The device operations (kernels, memsets, copies) that one eager call
-    of fn puts on the card, by name, from a torch.profiler trace of a warm
-    call; None, and "not measured" in the log, if the trace holds no device
-    event. Uses only the engine's public API, so it can count another
-    commit's engine too."""
+    of fn puts on the card, by name, with each name's device time in ms
+    (the trace's duration of each operation, added up), from a
+    torch.profiler trace of a warm call; None, and "not measured" in the
+    log, if the trace holds no device event. The trace opens with a spin
+    kernel that is not counted: on the H100 a trace could lose its first
+    device operation. Uses only the engine's public API, so it can count
+    another commit's engine too."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     try:
         with torch.profiler.profile(activities=activities) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
     except RuntimeError as e:  # a profiler that cannot trace the card
         log(f"phase 4: {name} device operations per call: not measured ({e})")
         return None
-    ops = {}
+    ops, ms = {}, {}
     for event in prof.events():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
-            ops[event.name[:80]] = ops.get(event.name[:80], 0) + 1
+        if (event.device_type == torch.autograd.DeviceType.CUDA
+                and not any(w in event.name for w in ("spin_kernel", "sleep"))):
+            key = event.name[:80]
+            ops[key] = ops.get(key, 0) + 1
+            ms[key] = ms.get(key, 0.0) + event.time_range.elapsed_us() / 1e3
     if not ops:
         log(f"phase 4: {name} device operations per call: not measured (no device event "
             "in the trace)")
         return None
-    log(f"phase 4: {name} device operations per call: {sum(ops.values())} {ops}")
-    return {"total": sum(ops.values()), "by_name": ops}
+    log(f"phase 4: {name} device operations per call: {sum(ops.values())} "
+        f"{ {k: (n, round(ms[k], 5)) for k, n in ops.items()} } (count, traced ms); "
+        f"{sum(ms.values()):.5f} ms traced in all")
+    return {"total": sum(ops.values()), "by_name": ops, "ms_by_name": ms,
+            "traced_ms": sum(ms.values())}
 
 
 def engine_launches() -> dict:
-    """launch_counts of evaluate_fleet_qc and _qu on the main path's fleet,
-    for whichever engine ``tpu_pruner_torch`` resolves to. Phase 4 counts
-    this checkout's; to count another commit's in the same call, load this
-    file with that checkout first on sys.path and call this function."""
+    """launch_counts of evaluate_fleet_c, _qc and _qu on the main path's
+    fleet, for whichever engine ``tpu_pruner_torch`` resolves to. Phase 4
+    counts this checkout's; to count another commit's in the same call, load
+    this file with that checkout first on sys.path and call this function."""
     dev = torch.device("cuda")
     _build.build()
     inputs, _ = make_example_fleet(CHIPS, SAMPLES, SLICES, idle_fraction=0.5, seed=0,
@@ -1069,6 +1266,8 @@ def engine_launches() -> dict:
     bounds = slice_bounds(inputs[4], SLICES, device=dev)
     at = f"{CHIPS}x{SAMPLES}"
     return {
+        "evaluate_fleet_c": launch_counts(f"{at} evaluate_fleet_c", lambda: evaluate_fleet_c(
+            *inputs[:4], bounds, inputs[5])),
         "evaluate_fleet_qc": launch_counts(f"{at} evaluate_fleet_qc", lambda: evaluate_fleet_qc(
             q[0], q[1], q[2], bounds, q[4])),
         "evaluate_fleet_qu": launch_counts(f"{at} evaluate_fleet_qu", lambda: evaluate_fleet_qu(
@@ -1146,13 +1345,19 @@ def phase_timing(inputs, q, err, num_slices: int, flush: torch.Tensor):
             lambda update=update: evaluate_window_qu(update(state, tc_new, hbm_new), age,
                                                      parr_q, cps))
     end_to_end = {name: end_to_end_ms(f"{at} {name}", fn, flush) for name, fn in e2e.items()}
+    # the slice gate on this fleet's int8 candidate (half the slices idle)
+    candidate = chip_pass_q(tc_q, hbm_q, age, parr_q)
+    rows["slice_gate"] = gate_timing(f"{at} in {num_slices} slices", candidate, bounds, flush)
+    rows["slice_gate"]["max_abs_err"] = err["slice_gate"]
     # the f32 paths again with the warp design forced, so that the record
     # shows whether end to end follows the pass
     with forced_f32_plan(lambda C, T: PlanWarps(-(-C // _F32_WARPS_PER_BLOCK))):
         for name in ("evaluate_fleet", "evaluate_fleet_c"):
             end_to_end[f"{name}, warp design forced"] = end_to_end_ms(
                 f"{at} {name}, warp design forced", e2e[name], flush)
-    for name in ("evaluate_fleet", "evaluate_fleet_c", "evaluate_fleet_qc", "evaluate_fleet_qu"):
+    for name in ("evaluate_fleet", "evaluate_fleet_c", "evaluate_fleet_qc", "evaluate_fleet_qu",
+                 "streaming cycle, update_window_ + evaluate_window_qc",
+                 "streaming cycle, update_window_ + evaluate_window_qu"):
         end_to_end[name]["device_ops"] = launch_counts(f"{at} {name}", e2e[name])
     amax_ms = time_ms(lambda: torch.amax(tc, 1), 50)
     log(f"context (not a port of either kernel): {at} torch.amax(tc, 1) {amax_ms:.4f} ms")
@@ -1334,6 +1539,98 @@ def log_f32_designs(at: str, designs: dict, chosen: str, bound: float, nbytes: i
             f"plan {t['plan']}")
 
 
+GATE_REPLACES = ("tpu_pruner/policy/engine.py:233 (slice_verdicts_contiguous: no Pallas kernel; "
+                 "the cumsum and gather XLA fuses into the jitted evaluate_fleet_c and _qc)")
+
+
+def gate_bytes(candidate, bounds) -> int:
+    """The bytes the slice gate must move on these inputs: the bounds read
+    once, the verdicts written once, and of each slice whose difference is
+    positive the chips it must read: every chip of an idle slice, one of a
+    busy slice (the data decides how many a kernel that stops at the first
+    busy chip needs)."""
+    n = candidate.numel() + 1
+    at = bounds.long().clamp(-n, n - 1)
+    at = torch.where(at < 0, at + n, at)
+    span = (at[1:] - at[:-1]).abs()
+    open_ = (bounds[1:] - bounds[:-1]).to(torch.int32) > 0
+    need = torch.where(slice_gate_plain(candidate, bounds), span, (span > 0).long())
+    return bounds.nbytes + (bounds.numel() - 1) + int(need[open_].sum())
+
+
+def time_fn(fn, flush: torch.Tensor | None = None) -> float:
+    """time_ms with 200 launches, or 20 where one launch takes over 1 ms."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    fn()
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return time_ms(fn, 200 if t0.elapsed_time(t1) < 1.0 else 20, flush)
+
+
+def gate_timing(what: str, candidate, bounds, flush: torch.Tensor) -> dict:
+    """The slice gate on (candidate, bounds), first held against the plain
+    version: warm and cold beside the plain version, an empty kernel and
+    the bound."""
+    C, S = candidate.numel(), bounds.numel() - 1
+    check(torch.equal(slice_gate(candidate, bounds), slice_gate_plain(candidate, bounds)),
+          f"slice gate differs from the plain version at {what}")
+    ms = time_fn(lambda: slice_gate(candidate, bounds))
+    ms_cold = time_fn(lambda: slice_gate(candidate, bounds), flush)
+    nbytes = gate_bytes(candidate, bounds)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    plain_ms = time_fn(lambda: slice_gate_plain(candidate, bounds))
+    plain_cold = time_fn(lambda: slice_gate_plain(candidate, bounds), flush)
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), 200)  # an empty kernel, timed alike
+    log(f"phase 4: {what}: slice_gate {ms:.4f} ms warm, {ms_cold:.4f} ms cold, bound "
+        f"{bound:.5f} ms ({nbytes} bytes); plain {plain_ms:.4f} ms warm, {plain_cold:.4f} ms "
+        f"cold; an empty kernel {floor_ms:.4f} ms")
+    return {"name": "slice_gate", "route": "cuda", "source": SOURCE, "replaces": GATE_REPLACES,
+            "pallas_counterpart": None, "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms,
+            "plain_ms_cold": plain_cold, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None, "bytes": nbytes, "launch_floor_ms": floor_ms, "chips": C,
+            "slices": S}
+
+
+def gate_fleets(dev, flush: torch.Tensor) -> dict:
+    """Phase 4's slice gate beyond the main path's fleets: one slice of
+    1,048,576 chips, all idle, so every chip is read; 1,048,576 slices of
+    one chip, every other busy; the mixed fleets (16-chip slices and one
+    each of 4,096, 8,960 and 65,536 chips, half the slices idle) at 131,072
+    and 1,048,576 chips; then the average slice length swept at 131,072 and
+    1,048,576 chips, all idle. Where the gate was slower than the plain
+    version, warm or cold, is logged and recorded."""
+    out = {}
+    idle = torch.ones(XL_CHIPS, dtype=torch.bool, device=dev)
+    one = torch.tensor([0, XL_CHIPS], dtype=torch.int32, device=dev)
+    out["one slice"] = gate_timing(f"one slice of {XL_CHIPS} chips, all idle", idle, one, flush)
+    alternate = torch.arange(XL_CHIPS, device=dev) % 2 == 0
+    each = torch.arange(XL_CHIPS + 1, dtype=torch.int32, device=dev)
+    out["1-chip slices"] = gate_timing(f"{XL_CHIPS} slices of 1 chip", alternate, each, flush)
+    rng = np.random.default_rng(4242)
+    for C in (CHIPS, XL_CHIPS):
+        cand, bounds = gate_fleet(rng, mixed_sizes(C))
+        out[f"mixed {C}"] = gate_timing(f"{C} chips, {MIXED}",
+                                        torch.from_numpy(cand).to(dev),
+                                        torch.from_numpy(bounds).to(dev), flush)
+    sweep = {}
+    for C, counts in ((CHIPS, (1, 8, 64, 512, 2048, 8192, 32768, CHIPS)),
+                      (XL_CHIPS, (1, 16, 128, 1024, 4096, 16384, XL_SLICES, 262144, XL_CHIPS))):
+        cand = torch.ones(C, dtype=torch.bool, device=dev)
+        for S in counts:
+            bounds = (torch.arange(S + 1, device=dev) * C // S).to(torch.int32)
+            t = gate_timing(f"{C} chips in {S} slices, all idle", cand, bounds, flush)
+            sweep[f"{C}/{S}"] = [t["ms"], t["ms_cold"], t["plain_ms"], t["plain_ms_cold"]]
+    slower = [k for k, t in {**{k: [v["ms"], v["ms_cold"], v["plain_ms"], v["plain_ms_cold"]]
+                                for k, v in out.items()}, **sweep}.items()
+              if t[0] > t[2] or t[1] > t[3]]
+    log(f"phase 4: slice_gate slower than its plain version at {slower}")
+    out["sweep"] = {"by_fleet": sweep, "slower_than_plain": slower}
+    return out
+
+
 def phase_dump_width(dev, flush: torch.Tensor) -> dict:
     """Phase 4 at an audit dump's width, 8 samples a chip: the f32 pass in
     each design at 32,768, 131,072 and 1,048,576 chips, warm and cold, beside
@@ -1361,9 +1658,11 @@ def phase_dump_width(dev, flush: torch.Tensor) -> dict:
             bounds = slice_bounds(inputs[4], C // CPS, device=dev)
             check(np.array_equal(evaluate_fleet_c(*inputs[:4], bounds, inputs[5])[0].cpu().numpy(),
                                  expected), f"{at} evaluate_fleet_c verdicts")
+            path = lambda: evaluate_fleet_c(*inputs[:4], bounds, inputs[5])  # noqa: E731
             rows[f"{C} chips"]["evaluate_fleet_c"] = end_to_end_ms(
-                f"{at} evaluate_fleet_c", lambda: evaluate_fleet_c(*inputs[:4], bounds, inputs[5]),
-                flush)
+                f"{at} evaluate_fleet_c", path, flush)
+            rows[f"{C} chips"]["evaluate_fleet_c"]["device_ops"] = launch_counts(
+                f"{at} evaluate_fleet_c", path)
         del inputs, args
     torch.cuda.empty_cache()
     rows["design_sweep"] = {C: f32_design_sweep(dev, C, flush)
@@ -1392,16 +1691,18 @@ def phase_xl(dev, flush: torch.Tensor):
     }
     for path, v in verdicts.items():
         check(np.array_equal(v.cpu().numpy(), expected), f"XL {path} verdicts")
+    candidate = chip_pass_q(q[0], q[1], q[2], q[4])
     err = {
         "chip_pass": mask_err(chip_pass(tc, hbm, valid, age, parr),
                               chip_pass_plain(tc, hbm, valid, age, parr)),
-        "chip_pass_q": mask_err(chip_pass_q(q[0], q[1], q[2], q[4]),
-                                chip_pass_q_plain(q[0], q[1], q[2], q[4])),
+        "chip_pass_q": mask_err(candidate, chip_pass_q_plain(q[0], q[1], q[2], q[4])),
+        "slice_gate": mask_err(slice_gate(candidate, bounds),
+                               slice_gate_plain(candidate, bounds)),
     }
     check(not any(err.values()), f"XL kernel mismatch {err}")
     log(f"phase 4: {XL_CHIPS}x{SAMPLES} in {XL_SLICES} slices built on the card in "
-        f"{setup_s:.3f} s; {', '.join(verdicts)} verdicts as expected; both kernels equal "
-        f"their plain versions; {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
+        f"{setup_s:.3f} s; {', '.join(verdicts)} verdicts as expected; every kernel equals "
+        f"its plain version; {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak")
     return phase_timing(inputs, q, err, XL_SLICES, flush)
 
 
@@ -1449,7 +1750,8 @@ def phase_streaming(dev, by_path: dict):
                           device=dev)
     state = init_window(CHIPS, WINDOW_CHUNKS, device=dev)
     fresh = init_window(CHIPS, WINDOW_CHUNKS, device=dev)
-    totals = {"update_window_ + evaluate_window_qc": 0, "evaluate_window_qu": 0}
+    totals = {path: dict.fromkeys(LAUNCHES, 0)
+              for path in ("update_window_ + evaluate_window_qc", "evaluate_window_qu")}
     verdicts_qu = []
     for cycle, (tc_new, hbm_new) in enumerate(chunks):
         def qc_cycle():
@@ -1458,7 +1760,8 @@ def phase_streaming(dev, by_path: dict):
             return evaluate_window_qc(state, age, bounds, pq)
 
         v, c = counted(by_path, "update_window_ + evaluate_window_qc", qc_cycle)
-        expect_launches(by_path, "update_window_ + evaluate_window_qc", {"chip_pass_q": 1})
+        expect_launches(by_path, "update_window_ + evaluate_window_qc",
+                        {"chip_pass_q": 1, "slice_gate": 1})
         # the functional form follows on its own rings, never the ones it was given
         prev, fresh = fresh, update_window(fresh, tc_new, hbm_new)
         check(fresh[0].data_ptr() != prev[0].data_ptr()
@@ -1466,9 +1769,10 @@ def phase_streaming(dev, by_path: dict):
               f"cycle {cycle}: update_window differs from update_window_")
         vu, cu = counted(by_path, "evaluate_window_qu",
                          lambda: evaluate_window_qu(state, age, pq, CPS))
-        expect_launches(by_path, "evaluate_window_qu", {"chip_pass_q": 1})
-        for path in totals:
-            totals[path] += by_path[path]["chip_pass_q"]
+        expect_launches(by_path, "evaluate_window_qu", {"chip_pass_q": 1, "slice_gate": 0})
+        for path, total in totals.items():
+            for name in total:
+                total[name] += by_path[path][name]
         window = chunks[max(0, cycle - WINDOW_CHUNKS + 1):cycle + 1]
         full_v, full_c = evaluate_fleet_qc(torch.cat([w[0] for w in window], dim=1),
                                            torch.cat([w[1] for w in window], dim=1),
@@ -1478,8 +1782,7 @@ def phase_streaming(dev, by_path: dict):
         check(torch.equal(vu, v) and torch.equal(cu, c), f"cycle {cycle}: window_qu != qc")
         check(np.array_equal(v.cpu().numpy(), expected[cycle]), f"cycle {cycle}: verdicts")
         verdicts_qu.append(vu)
-    for path, n in totals.items():
-        by_path[path] = {"chip_pass": 0, "chip_pass_q": n}
+    by_path.update(totals)
     err = mask_err(chip_pass_q(state[0], state[1], age, pq),
                    chip_pass_q_plain(state[0], state[1], age, pq))
     check(err == 0, "chip_pass_q differs from its plain version on the window ring")
@@ -1521,8 +1824,8 @@ def phase_sharded_one_rank(dev, by_path: dict, inputs, expected, q, stream) -> N
         try:
             for path, (kernel, kind, run) in runs.items():
                 name = f"one-rank NCCL: {path}"
-                v, c = counted(by_path, name, run)
-                expect_launches(by_path, name, {kernel: 1})
+                v, c = counted(by_path, name, run)  # counts, not verdicts: no gate
+                expect_launches(by_path, name, {kernel: 1, "slice_gate": 0})
                 check(np.array_equal(v.cpu().numpy(), expected)
                       and torch.equal(v, ref[kind][0]) and torch.equal(c, ref[kind][1]),
                       f"{name} differs from the single-device evaluation")
@@ -1530,7 +1833,7 @@ def phase_sharded_one_rank(dev, by_path: dict, inputs, expected, q, stream) -> N
             cycles = counted(by_path, name, lambda: run_stream_local(
                 CPS, WINDOW_CHUNKS, [ch[0] for ch in stream["chunks"]],
                 [ch[1] for ch in stream["chunks"]], stream["age"], stream["pq"]))
-            expect_launches(by_path, name, {"chip_pass_q": STREAM_CYCLES})
+            expect_launches(by_path, name, {"chip_pass_q": STREAM_CYCLES, "slice_gate": 0})
             for cycle, (v, *_) in enumerate(cycles):
                 check(torch.equal(v, stream["verdicts_qu"][cycle]),
                       f"{name}: cycle {cycle} differs from update_window + evaluate_window_qu")
@@ -1546,12 +1849,13 @@ def phase_dryrun(by_path: dict) -> None:
     summaries = entry.dryrun_multichip(DRYRUN_RANKS, device="cuda", backend="gloo",
                                        chips_per_rank=CHIPS // DRYRUN_RANKS,
                                        num_samples=SAMPLES, timeout_s=600)
-    want = {"make_sharded_evaluator": {"chip_pass": 1},
-            "evaluate_fleet_sharded": {"chip_pass": 1},
-            "evaluate_fleet_sharded_q": {"chip_pass_q": 1},
-            "evaluate_fleet_sharded_qc": {"chip_pass_q": 1},
-            "evaluate_fleet_sharded_qu": {"chip_pass_q": 1},
-            "make_sharded_stream_step": {"chip_pass_q": entry.STREAM_CHUNKS + 2}}
+    want = {"make_sharded_evaluator": {"chip_pass": 1, "slice_gate": 0},
+            "evaluate_fleet_sharded": {"chip_pass": 1, "slice_gate": 0},
+            "evaluate_fleet_sharded_q": {"chip_pass_q": 1, "slice_gate": 0},
+            "evaluate_fleet_sharded_qc": {"chip_pass_q": 1, "slice_gate": 0},
+            "evaluate_fleet_sharded_qu": {"chip_pass_q": 1, "slice_gate": 0},
+            "make_sharded_stream_step": {"chip_pass_q": entry.STREAM_CHUNKS + 2,
+                                         "slice_gate": 0}}
     want = {path: {name: w.get(name, 0) for name in LAUNCHES} for path, w in want.items()}
     for rank, s in enumerate(summaries):
         check(s["launches"] == want, f"dryrun rank {rank} launched {s['launches']}, "
@@ -1653,6 +1957,7 @@ def main() -> int:
     err["chip_pass_q"] = max(err["chip_pass_q"], phase_int8_edges(dev))
     phase_int8_designs(dev)
     err["chip_pass"] = max(err["chip_pass"], phase_f32_designs(dev))
+    err["slice_gate"] = phase_gate(dev)
     input_err = phase_engine_inputs(dev)
     err = {name: max(e, input_err) for name, e in err.items()}
     by_path = {}
@@ -1670,6 +1975,7 @@ def main() -> int:
     rows["chip_pass_q"]["design_sweep"] = {
         n: design_sweep(dev, n, flush) for n in (DRYRUN_CHIPS, CHIPS, XL_CHIPS)}
     rows["chip_pass"]["dump"] = phase_dump_width(dev, flush)
+    rows["slice_gate"]["fleets"] = gate_fleets(dev, flush)
     stream, ring_err = phase_streaming(dev, by_path)
     phase_sharded_one_rank(dev, by_path, inputs, expected, q, stream)
     phase_dryrun(by_path)

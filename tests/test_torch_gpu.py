@@ -10,16 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (F32_LAYOUTS, F32_PARAMS, INT8_LAYOUTS, INT8_PARAMS, SWEEP_C, SWEEP_T,
-                        adversarial_fleet, engine_input_check, f32_design_cases,
-                        f32_edge_fleet, f32_expected_design, input_cases, int8_design_cases,
-                        int8_edge_fleet, int8_on)
+from chip_smoke import (F32_LAYOUTS, F32_PARAMS, GATE_OFFSETS, INT8_LAYOUTS, INT8_PARAMS,
+                        SWEEP_C, SWEEP_T, adversarial_fleet, engine_input_check,
+                        f32_design_cases, f32_edge_fleet, f32_expected_design, gate_cases,
+                        gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on)
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
 from tpu_pruner_torch.policy import kernels
 
 PARAMS = [(2100.0, 0.05), (2100.0, float("inf")), (0.0, 1e-40), (2e-40, 0.5)]
 INPUT_CASES = input_cases(5)
+GATE_CASES = gate_cases(77)
 
 
 @pytest.fixture
@@ -327,3 +328,82 @@ def test_window_cursor_and_branches_on_card_match_cpu(cuda):
                           torch.zeros_like(new, device=cuda))
     tp.update_window(s0, new.to(cuda), new.to(cuda))
     assert int(s0[0].max()) == -1 and int(s1[0].max()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GATE_CASES))
+def test_slice_gate_matches_plain(cuda, case):
+    """The slice gate on chip_smoke.gate_cases, the candidate at each of
+    GATE_OFFSETS off a 16-byte boundary: one launch (none where S = 0),
+    bit-equal to the plain version on the card and on the CPU."""
+    cand_np, bounds_np = GATE_CASES[case]
+    bounds = torch.from_numpy(bounds_np).to(cuda)
+    S = bounds_np.size - 1
+    want_cpu = kernels.slice_gate_plain(torch.from_numpy(cand_np), torch.from_numpy(bounds_np))
+    for k in GATE_OFFSETS:
+        cand = gate_on(cuda, cand_np, k)
+        want = kernels.slice_gate_plain(cand, bounds)
+        assert torch.equal(want.cpu(), want_cpu)
+        before = kernels.LAUNCHES["slice_gate"]
+        got = kernels.slice_gate(cand, bounds)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["slice_gate"] - before == int(S > 0), k
+        assert torch.equal(got, want), k
+
+
+@pytest.mark.gpu
+def test_contiguous_paths_launch_the_gate_once(cuda):
+    """evaluate_fleet_c, _qc, evaluate_fleet_cuda_qc, evaluate_window_qc and
+    analyze.evaluate_loaded each launch the slice gate once, beside one pass,
+    and give the CPU's verdicts; the scatter and uniform paths never launch
+    it."""
+    C, S = 4096, 256
+    gpu_inputs, expected = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device=cuda)
+    q = tp.quantize_fleet_inputs(gpu_inputs)
+    bounds = tp.slice_bounds(gpu_inputs[4], S, device=cuda)
+    state = tp.init_window(C, 12, device=cuda)
+    state = tp.update_window_(state, q[0][:, :6].contiguous(), q[1][:, :6].contiguous())
+    fleet_np = tuple(x.cpu().numpy() for x in gpu_inputs[:5])
+    runs = {
+        "evaluate_fleet_c": (1, lambda: tp.evaluate_fleet_c(*gpu_inputs[:4], bounds,
+                                                            gpu_inputs[5])),
+        "evaluate_fleet_qc": (1, lambda: tp.evaluate_fleet_qc(q[0], q[1], q[2], bounds, q[4])),
+        "evaluate_fleet_cuda_qc": (1, lambda: tp.evaluate_fleet_cuda_qc(q[0], q[1], q[2],
+                                                                        bounds, q[4])),
+        "evaluate_window_qc": (1, lambda: tp.evaluate_window_qc(state, q[2], bounds, q[4])),
+        "evaluate_loaded": (1, lambda: evaluate_loaded(fleet_np, S, tp.PolicyParams(), False,
+                                                       cuda)),
+        "evaluate_loaded --quantize": (1, lambda: evaluate_loaded(fleet_np, S, tp.PolicyParams(),
+                                                                  True, cuda)),
+        "evaluate_fleet": (0, lambda: tp.evaluate_fleet(*gpu_inputs, num_slices=S)),
+        "evaluate_fleet_qu": (0, lambda: tp.evaluate_fleet_qu(q[0], q[1], q[2], q[4], C // S)),
+    }
+    for name, (gates, run) in runs.items():
+        tp.reset_launches()
+        v, _ = run()
+        torch.cuda.synchronize()
+        assert tp.LAUNCHES["slice_gate"] == gates, name
+        assert tp.LAUNCHES["chip_pass"] + tp.LAUNCHES["chip_pass_q"] == 1, name
+        if name != "evaluate_window_qc":
+            v = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            np.testing.assert_array_equal(v, expected, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_slice_gate_empty_inputs(cuda):
+    """S = 0 launches nothing; C = 0 with slices launches once, and its
+    verdicts are the bounds' differences, as the plain version's are."""
+    cand = torch.ones(16, dtype=torch.bool, device=cuda)
+    tp.reset_launches()
+    for bounds in (torch.tensor([3], device=cuda), torch.empty(0, dtype=torch.int32,
+                                                               device=cuda)):
+        out = kernels.slice_gate(cand, bounds.to(torch.int32))
+        assert out.shape == (0,) and out.dtype == torch.bool
+    assert tp.LAUNCHES["slice_gate"] == 0
+    empty = torch.ones(0, dtype=torch.bool, device=cuda)
+    bounds = torch.tensor([0, 0, 3, -1, 2, 2], dtype=torch.int32, device=cuda)
+    got = kernels.slice_gate(empty, bounds)
+    torch.cuda.synchronize()
+    assert tp.LAUNCHES["slice_gate"] == 1
+    assert got.tolist() == [False, True, False, True, False]
+    assert torch.equal(got, kernels.slice_gate_plain(empty, bounds))

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 from jax.sharding import Mesh
 
+from chip_smoke import gate_cases
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.policy import engine as teng
@@ -599,6 +600,52 @@ def test_out_of_range_bounds_match_reference(case):
     q = tp.quantize_fleet_inputs((*inputs, None, t(params())))
     assert_same(jeng.evaluate_fleet_qc(jq[0], jq[1], jq[2], jnp.asarray(bounds), jq[4]),
                 tp.evaluate_fleet_qc(q[0], q[1], q[2], t(bounds), q[4]), "evaluate_fleet_qc")
+
+
+GATE_CASES = gate_cases(31)
+
+
+@pytest.mark.parametrize("case", sorted(c for c, (cand, _) in GATE_CASES.items()
+                                        if c != "int64 wrap" and cand.size <= 1003))
+def test_contiguous_gate_cases_match_reference(case):
+    """The slice gate's adversarial bounds (chip_smoke.gate_cases: bounds
+    outside [0, C], out of order, empty, inverted and one-chip slices in
+    int32, int64, int8, int16 and uint8, int32 wrap, 1-chip slices, one
+    slice of all chips, uneven fleets with thrown bounds, S = 0, C = 0)
+    through evaluate_fleet_c and _qc, on fleets whose candidates are the
+    case's. JAX with x64 off narrows int64 bounds to int32, so the int64
+    wrap case is held to the plain version in test_torch_policy.py."""
+    cand, bounds = GATE_CASES[case]
+    C, T = cand.size, 3
+    tc = np.repeat(np.where(cand, 0.0, 0.5).astype(np.float32)[:, None], T, axis=1)
+    fleet = (tc, np.zeros((C, T), np.float32), np.ones((C, T), bool),
+             np.full(C, 7200, np.float32))
+    jfleet = tuple(jnp.asarray(x) for x in fleet)
+    inputs = tuple(t(x) for x in fleet)
+    ref = jeng.evaluate_fleet_c(*jfleet, jnp.asarray(bounds), jnp.asarray(params()))
+    np.testing.assert_array_equal(np.asarray(ref[1]), cand)
+    assert_same(ref, tp.evaluate_fleet_c(*inputs, t(bounds), t(params())), "evaluate_fleet_c")
+    jq = jeng.quantize_fleet_inputs((*jfleet, None, jnp.asarray(params())))
+    q = tp.quantize_fleet_inputs((*inputs, None, t(params())))
+    assert_same(jeng.evaluate_fleet_qc(jq[0], jq[1], jq[2], jnp.asarray(bounds), jq[4]),
+                tp.evaluate_fleet_qc(q[0], q[1], q[2], t(bounds), q[4]), "evaluate_fleet_qc")
+
+
+@pytest.mark.parametrize("bounds_dtype", ["bool", "float32", "float64"])
+def test_bool_and_float_bounds_are_refused(bounds_dtype):
+    """The reference refuses bool and float contiguous bounds; so does the
+    port, on either device, with a TypeError that names the dtype (its
+    plain cumsum and gather alone would have read float bounds)."""
+    cand = np.array([True, False, True, True])
+    bounds = np.array([0, 1, 3, 4]).astype(bounds_dtype)
+    with pytest.raises((IndexError, TypeError)):
+        jeng.slice_verdicts_contiguous(jnp.asarray(cand), jnp.asarray(bounds))
+    with pytest.raises(TypeError, match=bounds_dtype):
+        tp.slice_verdicts_contiguous(t(cand), t(bounds))
+    fleet = tuple(t(x) for x in (np.zeros((4, 2), np.float32), np.zeros((4, 2), np.float32),
+                                 np.ones((4, 2), bool), np.full(4, 7200, np.float32)))
+    with pytest.raises(TypeError, match=bounds_dtype):
+        tp.evaluate_fleet_c(*fleet, t(bounds), t(params()))
 
 
 # -- slice ids of every integer dtype ---------------------------------------------

@@ -17,7 +17,7 @@ import torch
 
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner.policy import pallas_engine as jpal
-from chip_smoke import F32_PARAMS, f32_edge_fleet
+from chip_smoke import F32_PARAMS, GATE_OFFSETS, f32_edge_fleet, gate_cases
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.policy import kernels
 
@@ -365,7 +365,7 @@ def test_chip_pass_wrappers_validate_inputs():
     got = tp.chip_pass(t_tc, t_hbm, t_valid, t_age, params)
     np.testing.assert_array_equal(
         got.numpy(), tp.chip_pass_plain(t_tc, t_hbm, t_valid, t_age, params).numpy())
-    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0}  # no kernel on the CPU
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}  # no kernel on the CPU
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():
@@ -613,7 +613,7 @@ def test_chip_pass_q_empty_fleet_launches_nothing():
     empty = torch.empty((0, 12), dtype=torch.int8)
     out = tp.chip_pass_q(empty, empty, torch.empty(0), torch.tensor([2100.0, 1.0]))
     assert out.shape == (0,) and out.dtype == torch.bool
-    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0}
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
     assert kernels.DESIGN_LAUNCHES == {"rows": 0, "tiles": 0}
 
 
@@ -896,7 +896,7 @@ def test_chip_pass_empty_fleet_launches_nothing():
     empty = torch.empty((0, 8))
     out = tp.chip_pass(empty, empty, empty.bool(), torch.empty(0), torch.tensor([2100.0, 1.0]))
     assert out.shape == (0,) and out.dtype == torch.bool
-    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0}
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
     assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0, "warps": 0}
     long_empty = torch.empty((0, 360))
     out = tp.chip_pass(long_empty, long_empty, long_empty.bool(), torch.empty(0),
@@ -961,3 +961,251 @@ def test_evaluate_loaded_at_dump_width_matches_reference(tmp_path):
     assert int(candidates.sum()) == ref["idle_chips"]
     assert 0 < len(ref["reclaimable_slices"]) < len(names)
     assert run(torch_analyze.main, [str(path), "--device", "cpu"]) == ref
+
+
+# ── the contiguous slice gate (work split) ────────────────────────────────
+
+GATE_CASES = gate_cases(2023)
+# the width and signedness of the bounds' difference, as the wrapper passes them
+GATE_WRAP = {np.dtype(np.int32): (32, True), np.dtype(np.int64): (32, True),
+             np.dtype(np.int8): (8, True), np.dtype(np.int16): (16, True),
+             np.dtype(np.uint8): (8, False)}
+
+
+def _gate_index(b: int, C: int) -> int:
+    """clamp(b, -(C+1), C), a negative bound from the end (gate_index)."""
+    n = C + 1
+    b = min(max(b, -n), C)
+    return b + n if b < 0 else b
+
+
+def _gate_open(b0: int, b1: int, bits: int, signed: bool) -> bool:
+    """int32 of b1 - b0 taken in `bits` bits, signed or not, is > 0."""
+    d = (b1 - b0) % 2**bits
+    if signed and d >= 2**(bits - 1):
+        d -= 2**bits
+    return d > 0
+
+
+def gate_grid(C: int, S: int) -> tuple:
+    """(slices a block, blocks) of tp_slice_gate's grid (gate_grid): a
+    thread a slice in blocks of _GATE_THREADS, or the slices spread over
+    C / _GATE_CHIPS_PER_BLOCK blocks where that is more, at most one a
+    slice."""
+    blocks = -(-S // kernels._GATE_THREADS)
+    spread = -(-C // kernels._GATE_CHIPS_PER_BLOCK)
+    if spread > blocks:
+        blocks = min(spread, S)
+    per = -(-S // blocks)
+    return per, -(-S // per)
+
+
+def gate_walk(total: int) -> np.ndarray:
+    """The run's granule indices in the order the block's threads load them
+    (tp_slice_gate's walk): thread r, in warp r // 32 at lane r % 32, reads
+    granule (r // 32) 32 W + r % 32 + 32 u of each round of
+    _GATE_THREADS x W granules, for u < W = _GATE_WALK_GRANULES; indices
+    past the run load nothing."""
+    W = kernels._GATE_WALK_GRANULES
+    threads = kernels._GATE_THREADS
+    r = np.arange(threads)
+    first = (r >> 5) * 32 * W + (r & 31)
+    rounds = np.arange(-(-total // (threads * W)))
+    j = (rounds[:, None, None] * threads * W + first[None, :, None]
+         + 32 * np.arange(W)[None, None, :])
+    return j[j < total]
+
+
+def emulate_slice_gate(cand, bounds, base: int):
+    """numpy replay of tp_slice_gate's work split, the candidate starting
+    `base` bytes past a 16-byte boundary: per slice, its granules (the
+    aligned 16 bytes that hold its chips, the bytes outside its range
+    masked); a slice of up to _GATE_LANE_GRANULES granules read by its
+    thread alone; a longer one's first and last granule by its thread,
+    then, if neither is busy, its interior granules in its block's lists
+    (in thread order; a block owns gate_grid's `per` slices), and each
+    block's lists walked as one run (gate_walk). Returns (verdicts uint8[S], the chips each slice tested,
+    the first chip of each granule it loaded, each slice's [lo, hi), and
+    whether its block walked it)."""
+    C, S = cand.size, bounds.size - 1
+    bits, signed = GATE_WRAP[bounds.dtype]
+    per, _ = gate_grid(C, S)
+    verdicts = np.zeros(S, np.uint8)
+    tested = [[np.zeros(0, np.int64)] for _ in range(S)]
+    loaded = [[np.zeros(0, np.int64)] for _ in range(S)]
+    spans, walked = [(0, 0)] * S, np.zeros(S, bool)
+    lists = {}  # block -> [(slice, first interior chip, interior granules)]
+
+    def read(s, chips0, lo, hi) -> bool:  # granules starting at chips0: any busy chip in range
+        chips = chips0[:, None] + np.arange(16)[None, :]
+        loaded[s].append(chips0)
+        t = chips[(chips >= lo) & (chips < hi)]
+        tested[s].append(t)
+        return bool((~cand[t]).any())
+
+    for s in range(S):
+        b0, b1 = int(bounds[s]), int(bounds[s + 1])
+        if not _gate_open(b0, b1, bits, signed):
+            continue
+        lo, hi = sorted((_gate_index(b0, C), _gate_index(b1, C)))
+        spans[s] = (lo, hi)
+        a = (base + lo) // 16 * 16 - base  # the first granule's first chip
+        n = 0 if lo == hi else (-(-(base + hi) // 16) * 16 - base - a) // 16
+        if n <= kernels._GATE_LANE_GRANULES:
+            verdicts[s] = not read(s, a + 16 * np.arange(n), lo, hi)
+        elif not read(s, np.array([a, a + 16 * (n - 1)]), lo, hi):
+            lists.setdefault(s // per, []).append((s, a + 16, n - 2))
+    for run in lists.values():
+        start = np.concatenate([[0], np.cumsum([n for _, _, n in run])])
+        j = gate_walk(int(start[-1]))
+        e = np.searchsorted(start, j, side="right") - 1
+        first = np.array([f for _, f, _ in run])
+        for k, (s, _, _) in enumerate(run):
+            walked[s] = True
+            mine = j[e == k] - start[k]
+            verdicts[s] = not read(s, first[k] + 16 * mine, *spans[s])
+    return (verdicts, [np.concatenate(t) for t in tested], [np.concatenate(x) for x in loaded],
+            spans, walked)
+
+
+def test_gate_constants_agree_with_the_kernels():
+    """_GATE_THREADS, _GATE_LANE_GRANULES, _GATE_WALK_GRANULES and
+    _GATE_CHIPS_PER_BLOCK are chip_pass.cu's kGateThreads,
+    kGateLaneGranules, kGateWalkGranules and kGateChipsPerBlock, and the
+    kernel's walk reads granules as gate_walk replays it."""
+    src = (Path(kernels.__file__).parent / "csrc" / "chip_pass.cu").read_text()
+    for name, value in (("kGateThreads", kernels._GATE_THREADS),
+                        ("kGateLaneGranules", kernels._GATE_LANE_GRANULES),
+                        ("kGateWalkGranules", kernels._GATE_WALK_GRANULES),
+                        ("kGateChipsPerBlock", kernels._GATE_CHIPS_PER_BLOCK)):
+        assert int(re.search(rf"constexpr int(?:64_t)? {name} = (\d+);", src).group(1)) == value, \
+            name
+    for line in ("int64_t at = int64_t(warp) * 32 * kGateWalkGranules + lane;",
+                 "const int64_t j = at + int64_t(u) * 32;",
+                 "int64_t(kGateThreads) * kGateWalkGranules"):
+        assert line in src, line
+
+
+@pytest.mark.parametrize(("C", "S"), [(0, 1), (16, 1), (131072, 8192), (131072, 3283),
+                                    (1048576, 1), (1048576, 16), (1048576, 128), (1048576, 1024),
+                                    (1048576, 65536), (1048576, 1048576), (10**9, 3)])
+def test_gate_grid_owns_each_slice_once(C, S):
+    """gate_grid gives every slice one owner thread: blocks of `per` <=
+    _GATE_THREADS slices, no block empty; the main path's fleets keep
+    _GATE_THREADS slices a block, fleets of few slices spread them over up
+    to C / _GATE_CHIPS_PER_BLOCK blocks."""
+    per, blocks = gate_grid(C, S)
+    assert 1 <= per <= kernels._GATE_THREADS
+    assert (blocks - 1) * per < S <= blocks * per
+    least, spread = -(-S // kernels._GATE_THREADS), -(-C // kernels._GATE_CHIPS_PER_BLOCK)
+    if least >= spread:
+        assert (per, blocks) == (min(S, kernels._GATE_THREADS), least)
+    else:
+        assert per == -(-S // min(spread, S))
+    assert gate_grid(131072, 8192) == (512, 16) and gate_grid(1048576, 128) == (2, 64)
+
+
+@pytest.mark.parametrize("total", [1, 31, 255, 256, 16383, 16384, 16385, 65534])
+def test_gate_walk_loads_each_granule_once(total):
+    """The block's walk loads every granule of a run of `total` exactly
+    once (65,534: the interior of one slice of 1,048,576 chips), and a
+    warp's load u reads 32 consecutive granules."""
+    j = gate_walk(total)
+    np.testing.assert_array_equal(np.sort(j), np.arange(total))
+    W, threads = kernels._GATE_WALK_GRANULES, kernels._GATE_THREADS
+    r = np.arange(threads)
+    first = (r >> 5) * 32 * W + (r & 31)
+    assert (np.diff(first.reshape(-1, 32), axis=1) == 1).all()
+
+
+@pytest.mark.parametrize("case", sorted(GATE_CASES))
+def test_slice_gate_replay_matches_plain_and_reference(case):
+    """The replay of the gate's work split, with the candidate at each of
+    GATE_OFFSETS past a 16-byte boundary: no
+    chip tested outside a slice's range, no granule loaded that holds none
+    of its chips, and the verdicts of slice_gate_plain and of the JAX
+    slice_verdicts_contiguous. The JAX engine (x64 off) narrows int64
+    bounds to int32 before it reads them, so the int64 case whose bounds
+    pass 2^31 is held to the plain version alone: the port reads int64
+    bounds whole, as its plain version does."""
+    cand, bounds = GATE_CASES[case]
+    S = bounds.size - 1
+    want = tp.slice_verdicts_contiguous(torch.from_numpy(cand), torch.from_numpy(bounds))
+    assert want.shape == (max(S, 0),)
+    if np.iinfo(bounds.dtype).bits <= 32 or np.abs(bounds).max(initial=0) < 2**31:
+        ref = jeng.slice_verdicts_contiguous(jnp.asarray(cand), jnp.asarray(bounds))
+        np.testing.assert_array_equal(want.numpy(), np.asarray(ref))
+    if S <= 0:
+        return
+    for k in GATE_OFFSETS:
+        got, tested, loaded, spans, _ = emulate_slice_gate(cand, bounds, 4096 + k)
+        for t, x, (lo, hi) in zip(tested, loaded, spans):
+            assert ((t >= lo) & (t < hi)).all(), k
+            assert ((x + 16 > lo) & (x < hi)).all(), k
+        np.testing.assert_array_equal(got, want.numpy().astype(np.uint8), err_msg=f"offset {k}")
+
+
+@pytest.mark.parametrize("offset", GATE_OFFSETS)
+def test_slice_gate_replay_reads_each_chip_once(offset):
+    """On all-idle candidates, where no slice is settled by its first or
+    last granule, the replay tests each chip of each open slice's range
+    exactly once, through its thread or its block's walk, and no chip of
+    an empty or inverted slice; both ways are taken."""
+    ways = set()
+    for case, (cand, bounds) in GATE_CASES.items():
+        if bounds.size <= 1:
+            continue
+        idle = np.ones_like(cand)
+        got, tested, _, spans, walked = emulate_slice_gate(idle, bounds, 4096 + offset)
+        for s, (t, (lo, hi)) in enumerate(zip(tested, spans)):
+            np.testing.assert_array_equal(np.sort(t), np.arange(lo, hi),
+                                          err_msg=f"{case}, slice {s}")
+        want = kernels.slice_gate_plain(torch.from_numpy(idle), torch.from_numpy(bounds))
+        np.testing.assert_array_equal(got, want.numpy().astype(np.uint8), err_msg=case)
+        ways |= set(walked.tolist())
+    assert ways == {False, True}
+
+
+@pytest.mark.parametrize("where", ["first", "second granule", "middle", "last granule",
+                                   "last"])
+def test_slice_gate_replay_sees_each_busy_chip(where):
+    """The replay is not vacuous: on the mixed fleet (16-chip slices and
+    long ones), all idle but for one busy chip a slice at its first chip,
+    16 chips in, its middle, 16 chips from its end or its last chip, every
+    slice is busy, at every offset; a busy chip in a long slice's first or
+    last granule settles it in its thread, one in its interior is found by
+    its block's walk."""
+    cand, bounds = GATE_CASES["mixed: 16-chip slices, one of 4,096, 8,960 and 65,536 chips"]
+    lo, hi = bounds[:-1].astype(np.int64), bounds[1:].astype(np.int64)
+    at = {"first": lo, "second granule": np.minimum(lo + 16, hi - 1), "middle": (lo + hi) // 2,
+          "last granule": np.maximum(hi - 17, lo), "last": hi - 1}[where]
+    busy = np.ones_like(cand)
+    busy[at] = False
+    for k in GATE_OFFSETS:
+        got, _, _, _, walked = emulate_slice_gate(busy, bounds, 4096 + k)
+        assert not got.any(), k
+        assert walked.sum() == (0 if where in ("first", "last") else 3), k
+
+
+def test_slice_gate_wrapper_validates_inputs():
+    """slice_gate takes bool candidates and int32, int64, int8, int16 or
+    uint8 bounds, 1-D, contiguous and on one device; on the CPU it is its
+    plain version and counts no launch."""
+    cand = torch.tensor([True, False, True, True])
+    bounds = torch.tensor([0, 1, 3, 4], dtype=torch.int32)
+    for dtype in (torch.bool, torch.float32, torch.float64, torch.uint16, torch.uint32):
+        with pytest.raises(TypeError, match="bounds"):
+            kernels.slice_gate(cand, bounds.to(dtype))
+    with pytest.raises(TypeError, match="candidate"):
+        kernels.slice_gate(cand.to(torch.uint8), bounds)
+    with pytest.raises(ValueError, match="1-D"):
+        kernels.slice_gate(cand.view(2, 2), bounds)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.slice_gate(cand, torch.arange(8, dtype=torch.int32)[::2])
+    tp.reset_launches()
+    for dtype in (torch.int32, torch.int64, torch.int8, torch.int16, torch.uint8):
+        got = kernels.slice_gate(cand, bounds.to(dtype))
+        assert torch.equal(got, kernels.slice_gate_plain(cand, bounds.to(dtype)))
+        assert got.tolist() == [True, False, True]
+    assert kernels.slice_gate(cand, bounds[:1]).shape == (0,)  # S = 0
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}

@@ -1,6 +1,6 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``policy/csrc/chip_pass.cu`` becomes ``build/torch_kernels/libchip_pass.so``
+``policy/csrc/chip_pass.cu`` (both chip passes and the slice gate) becomes ``build/torch_kernels/libchip_pass.so``
 at the repository root, compiled by ``nvcc`` for Hopper (``sm_90a``) with a
 plain C interface. That builds in seconds, where an extension that includes
 PyTorch's headers takes minutes. The library is rebuilt when any source in
@@ -40,6 +40,9 @@ SIGNATURES = {
     "tp_chip_pass_groups": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P),
     # ..., num_chips, num_samples, then kernels.PlanLong in order, then the stream
     "tp_chip_pass_long": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    # candidate, bounds, out, num_chips, num_slices, bound_bytes, wrap_bits,
+    # wrap_signed, the stream
+    "tp_slice_gate": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
 }
 SOURCE = CSRC / "chip_pass.cu"
 LIBRARY = BUILD_DIR / "libchip_pass.so"

@@ -7,6 +7,10 @@
 //                   (pallas_engine.py:104; int8 1%-bucket samples, -1 = invalid
 //                   in-band).
 //
+// And the contiguous slice gate, tp_slice_gate (at the end of this file),
+// which reduces the pass's chip verdicts to slice verdicts; it has no Pallas
+// counterpart.
+//
 // Both read every sample byte once and write one byte per chip: they are
 // bound by device-memory bandwidth and do no tensor-core work. At the fleet
 // size of 131,072 chips x 360 samples the f32 pass moves 425,328,648 B
@@ -853,6 +857,277 @@ bool long_plan_ok(const F32Args& a, int64_t T, int64_t k, int64_t grid) {
            (grid - 1) * kWarpsPerBlock < a.num_chips && a.num_chips <= grid * kWarpsPerBlock;
 }
 
+// ── the contiguous slice gate: chip verdicts -> slice verdicts ─────────────
+//
+// tp_slice_gate has no Pallas counterpart. It is the reduction that the
+// reference leaves to XLA inside its jitted evaluate_fleet_c and _qc
+// (tpu_pruner/policy/engine.py:233-239, a cumsum and a boundary gather),
+// which the port ran as 14 eager operations after the pass. It reads the
+// candidate bytes (bool[C], nonzero = candidate) and the bounds ([S+1],
+// int32 or int64) and writes bool[S], with the semantics of
+// kernels.slice_gate_plain:
+//   - bound b is read where that gather reads it, clamp(b, -(C+1), C) with a
+//     negative one counted from the end; slice s covers the chips between its
+//     two read bounds, in either order;
+//   - s is idle iff bounds[s+1] - bounds[s], taken in the bounds' dtype (the
+//     wrapper passes narrower dtypes widened, with their width: wrap_bits)
+//     and cast to int32, is > 0, and no chip it covers is busy (a 0 byte).
+//     An empty or inverted slice is never idle, and reads no chip.
+// It moves at most C + |bounds| + S bytes (172 KB at 131,072 chips in 8,192
+// slices): a launch and two dependent memory round trips (the bounds, then
+// the chips) bound it, not bandwidth.
+//
+// The work split is decided per slice, inside the kernel, from the slice's
+// own length. Block b owns `per` consecutive slices, b x per onwards, a
+// thread each; `per` is kGateThreads unless the fleet has more chips than
+// kGateChipsPerBlock per block at that, when the slices are spread over
+// more blocks (up to one slice a block). Each thread reads its slice's chips
+// as granules, the aligned 16-byte words that hold them,
+// with the bytes outside the slice's range masked off (a granule never
+// crosses a page, so reading all of it is safe):
+//   - a slice of up to kGateLaneGranules granules (up to 113 chips; every
+//     slice of the main path's 16-chip fleets) is read by its thread alone,
+//     all its loads issued at once, and its verdict written at once;
+//   - a longer slice has its first and last granule read by its thread; if
+//     neither holds a busy chip, the block's kGateThreads threads walk its
+//     interior granules together with those of the block's other long
+//     slices, as one run, load-balanced: the block's warp w reads granules
+//     [w, w + 1) x 32 kGateWalkGranules of each round, 32 consecutive
+//     granules (512 bytes) a load. A busy granule sets its slice's bit in
+//     shared memory, and after a block barrier the owners' verdicts are
+//     written. The walk does not stop early.
+// So a long slice is read by a block of threads on one SM wherever it sits
+// among short ones, few long slices are spread over as many blocks, and a
+// block whose slices are all short passes one barrier and no other. One SM
+// reads a slice of 1,048,576 chips at under 50 GB/s; a cluster of blocks on
+// 8 SMs would read it faster, but its scheduling and barriers cost every
+// launch, the main path's included (PERF.md §6).
+
+constexpr int kGateThreads = 512;      // a block (kernels._GATE_THREADS)
+constexpr int kGateLaneGranules = 8;   // the longest slice a thread reads alone (_GATE_LANE_GRANULES)
+constexpr int kGateWalkGranules = 8;   // granules a thread a round of the walk (_GATE_WALK_GRANULES)
+constexpr int kGateWarps = kGateThreads / 32;
+constexpr int64_t kGateChipsPerBlock = 16384;  // spread slices over C / this blocks (_GATE_CHIPS_PER_BLOCK)
+
+// One slice's chips as granules: n granules from `first`, the first one's
+// bytes from lo and the last one's up to hi (exclusive) in range.
+struct GateSlice {
+    const uint4* first = nullptr;
+    int64_t n = 0;
+    int lo = 0, hi = 16;
+    bool open = false;  // int32(bounds[s+1] - bounds[s]) > 0
+};
+
+// clamp(b, -(C+1), C), then a negative one from the end: where the plain
+// version's gather reads bound b.
+__device__ __forceinline__ int64_t gate_index(int64_t b, int64_t num_chips) {
+    const int64_t n = num_chips + 1;
+    b = b < -n ? -n : (b > num_chips ? num_chips : b);
+    return b < 0 ? b + n : b;
+}
+
+template <typename B>
+__device__ __forceinline__ GateSlice gate_slice(const uint8_t* cand, const B* bounds, int64_t s,
+                                                int64_t num_chips, int wrap_bits,
+                                                bool wrap_signed) {
+    const int64_t b0 = int64_t(bounds[s]), b1 = int64_t(bounds[s + 1]);
+    // the difference in the bounds' own width, then cast to int32
+    const uint32_t d = uint32_t(uint64_t(b1) - uint64_t(b0));
+    int32_t chips = int32_t(d);
+    if (wrap_bits == 8) chips = wrap_signed ? int32_t(int8_t(d & 0xffu)) : int32_t(d & 0xffu);
+    if (wrap_bits == 16)
+        chips = wrap_signed ? int32_t(int16_t(d & 0xffffu)) : int32_t(d & 0xffffu);
+    GateSlice g;
+    g.open = chips > 0;
+    if (!g.open) return g;  // never idle: no chip to read
+    int64_t lo = gate_index(b0, num_chips), hi = gate_index(b1, num_chips);
+    if (lo > hi) {
+        const int64_t t = lo;
+        lo = hi, hi = t;
+    }
+    if (lo == hi) return g;  // no chip: idle
+    const uintptr_t p = reinterpret_cast<uintptr_t>(cand) + uintptr_t(lo);
+    const uintptr_t q = reinterpret_cast<uintptr_t>(cand) + uintptr_t(hi);
+    const uintptr_t a = p & ~uintptr_t(15), z = (q + 15) & ~uintptr_t(15);
+    g.first = reinterpret_cast<const uint4*>(a);
+    g.n = int64_t((z - a) >> 4);
+    g.lo = int(p - a);
+    g.hi = int(q - (z - 16));
+    return g;
+}
+
+// Whether a word holds a 0 byte (exact: a byte above the lowest zero byte
+// may set a false bit, but the word tests nonzero iff one byte is zero).
+__device__ __forceinline__ bool has_zero_byte(uint64_t x) {
+    return ((x - 0x0101010101010101ull) & ~x & 0x8080808080808080ull) != 0ull;
+}
+
+__device__ __forceinline__ uint64_t low_word(const uint4& v) {
+    return uint64_t(v.x) | (uint64_t(v.y) << 32);
+}
+
+__device__ __forceinline__ uint64_t high_word(const uint4& v) {
+    return uint64_t(v.z) | (uint64_t(v.w) << 32);
+}
+
+__device__ __forceinline__ bool any_busy(const uint4& v) {
+    return has_zero_byte(low_word(v)) | has_zero_byte(high_word(v));
+}
+
+// The bytes [lo, hi) of a 64-bit word, clamped to [0, 8), as a mask.
+__device__ __forceinline__ uint64_t byte_mask(int lo, int hi) {
+    lo = min(max(lo, 0), 8), hi = min(max(hi, 0), 8);
+    const uint64_t below_hi = hi == 8 ? ~0ull : (1ull << (8 * hi)) - 1;
+    const uint64_t below_lo = lo == 8 ? ~0ull : (1ull << (8 * lo)) - 1;
+    return below_hi & ~below_lo;
+}
+
+// Whether bytes [lo, hi) of granule v hold a 0 byte: the others are set to
+// 0xff first.
+__device__ __forceinline__ bool masked_busy(const uint4& v, int lo, int hi) {
+    return has_zero_byte(low_word(v) | ~byte_mask(lo, hi)) |
+           has_zero_byte(high_word(v) | ~byte_mask(lo - 8, hi - 8));
+}
+
+// The owning thread's part of a slice: a short slice's verdict, and a long
+// one's first and last granule. Writes the verdict where these settle it;
+// returns whether the slice's interior is left to the walk.
+__device__ __forceinline__ bool gate_own(const GateSlice& g, uint8_t* verdict) {
+    const uint4 none = make_uint4(~0u, ~0u, ~0u, ~0u);
+    const bool alone = g.n <= kGateLaneGranules;
+    const uint4 head = g.n > 0 ? __ldg(g.first) : none;
+    const uint4 tail = g.n > 1 ? __ldg(g.first + g.n - 1) : none;
+    uint4 mid[kGateLaneGranules - 2];
+#pragma unroll
+    for (int u = 0; u < kGateLaneGranules - 2; ++u)
+        mid[u] = alone && u + 1 < g.n - 1 ? __ldg(g.first + 1 + u) : none;
+    bool busy = masked_busy(head, g.lo, g.n == 1 ? g.hi : 16) | masked_busy(tail, 0, g.hi);
+#pragma unroll
+    for (int u = 0; u < kGateLaneGranules - 2; ++u) busy |= any_busy(mid[u]);
+    if (alone || busy) {
+        *verdict = (g.open && !busy) ? 1 : 0;
+        return false;
+    }
+    return true;
+}
+
+template <typename B>
+__global__ void __launch_bounds__(kGateThreads)
+slice_gate_kernel(const uint8_t* __restrict__ cand, const B* __restrict__ bounds,
+                  uint8_t* __restrict__ out, int64_t num_chips, int64_t num_slices, int per,
+                  int wrap_bits, int wrap_signed) {
+    // The block's long slices, in thread order, as one run of granules: list
+    // e's are run[walk_start[e], walk_start[e+1]), from walk_first[e]; its
+    // owner is thread walk_owner[e], and a busy granule sets bit e of
+    // walk_busy.
+    __shared__ const uint4* walk_first[kGateThreads];
+    __shared__ int64_t walk_start[kGateThreads + 1];
+    __shared__ int walk_owner[kGateThreads];
+    __shared__ unsigned walk_busy[kGateWarps];
+    __shared__ int64_t warp_lists[kGateWarps], warp_granules[kGateWarps];
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid < kGateWarps) walk_busy[tid] = 0u;
+    const int64_t block_first = int64_t(blockIdx.x) * per, s = block_first + tid;
+    GateSlice g;
+    bool listed = false;
+    if (tid < per && s < num_slices) {
+        g = gate_slice(cand, bounds, s, num_chips, wrap_bits, wrap_signed != 0);
+        listed = gate_own(g, out + s);
+    }
+    if (!__syncthreads_or(listed)) return;  // every slice of the block is settled
+
+    // each listed thread's place in the lists and in the run: a warp's
+    // shuffle scan, then the warps' sums scanned by warp 0
+    int64_t lists = listed ? 1 : 0, granules = listed ? g.n - 2 : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const int64_t l = __shfl_up_sync(kFullMask, lists, off);
+        const int64_t n = __shfl_up_sync(kFullMask, granules, off);
+        if (lane >= off) lists += l, granules += n;
+    }
+    if (lane == 31) warp_lists[warp] = lists, warp_granules[warp] = granules;
+    __syncthreads();
+    if (warp == 0) {
+        int64_t l = lane < kGateWarps ? warp_lists[lane] : 0;
+        int64_t n = lane < kGateWarps ? warp_granules[lane] : 0;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int64_t l2 = __shfl_up_sync(kFullMask, l, off);
+            const int64_t n2 = __shfl_up_sync(kFullMask, n, off);
+            if (lane >= off) l += l2, n += n2;
+        }
+        if (lane < kGateWarps) warp_lists[lane] = l, warp_granules[lane] = n;
+    }
+    __syncthreads();
+    const int n_lists = int(warp_lists[kGateWarps - 1]);
+    const int64_t total = warp_granules[kGateWarps - 1];
+    if (listed) {
+        const int e = int(lists - 1 + (warp > 0 ? warp_lists[warp - 1] : 0));
+        walk_first[e] = g.first + 1;
+        walk_start[e] = granules - (g.n - 2) + (warp > 0 ? warp_granules[warp - 1] : 0);
+        walk_owner[e] = tid;
+    }
+    if (tid == 0) walk_start[n_lists] = total;
+    __syncthreads();
+
+    // the walk: warp w reads granules [w, w + 1) x 32 kGateWalkGranules of
+    // each round, granule 32 u + lane of them at load u
+    constexpr int64_t kRound = int64_t(kGateThreads) * kGateWalkGranules;
+    int flagged = -1;  // the last list this thread flagged
+    for (int64_t at = int64_t(warp) * 32 * kGateWalkGranules + lane; at < total; at += kRound) {
+        int e = 0, top = n_lists;  // the last list that starts at or before `at`
+        while (top - e > 1) {
+            const int mid = (e + top) >> 1;
+            if (walk_start[mid] <= at) e = mid;
+            else top = mid;
+        }
+        uint4 x[kGateWalkGranules];
+        int list_of[kGateWalkGranules];
+#pragma unroll
+        for (int u = 0; u < kGateWalkGranules; ++u) {
+            const int64_t j = at + int64_t(u) * 32;
+            while (e + 1 < n_lists && walk_start[e + 1] <= j) ++e;
+            list_of[u] = e;
+            x[u] = j < total ? __ldg(walk_first[e] + (j - walk_start[e]))
+                             : make_uint4(~0u, ~0u, ~0u, ~0u);
+        }
+#pragma unroll
+        for (int u = 0; u < kGateWalkGranules; ++u) {
+            if (list_of[u] == flagged || !any_busy(x[u])) continue;
+            flagged = list_of[u];
+            atomicOr(&walk_busy[flagged >> 5], 1u << (flagged & 31));
+        }
+    }
+    __syncthreads();
+    for (int e = tid; e < n_lists; e += kGateThreads)
+        out[block_first + walk_owner[e]] = ((walk_busy[e >> 5] >> (e & 31)) & 1u) ? 0 : 1;
+}
+
+// The gate's slices a block (per) and blocks: kGateThreads slices a block,
+// or, where that leaves more than kGateChipsPerBlock chips a block, the
+// slices spread over C / kGateChipsPerBlock blocks (at most one a slice).
+struct GateGrid {
+    int64_t per, blocks;
+};
+
+GateGrid gate_grid(int64_t num_chips, int64_t num_slices) {
+    int64_t blocks = (num_slices + kGateThreads - 1) / kGateThreads;
+    const int64_t spread = (num_chips + kGateChipsPerBlock - 1) / kGateChipsPerBlock;
+    if (spread > blocks) blocks = spread < num_slices ? spread : num_slices;
+    const int64_t per = (num_slices + blocks - 1) / blocks;
+    return {per, (num_slices + per - 1) / per};
+}
+
+template <typename B>
+void launch_gate(const uint8_t* cand, const void* bounds, uint8_t* out, int64_t num_chips,
+                 int64_t num_slices, int wrap_bits, int wrap_signed, cudaStream_t stream) {
+    const GateGrid grid = gate_grid(num_chips, num_slices);
+    slice_gate_kernel<B><<<unsigned(grid.blocks), kGateThreads, 0, stream>>>(
+        cand, static_cast<const B*>(bounds), out, num_chips, num_slices, int(grid.per),
+        wrap_bits, wrap_signed);
+}
+
 }  // namespace
 
 extern "C" {
@@ -926,6 +1201,27 @@ int tp_chip_pass_long(const void* tc, const void* hbm, const void* valid, const 
     if (!long_plan_ok(a, num_samples, samples, grid)) return int(cudaErrorInvalidValue);
     launch_long(int(samples), LongK{}, a, int(num_samples), unsigned(grid),
                 static_cast<cudaStream_t>(stream));
+    return int(cudaGetLastError());
+}
+
+// The slice gate; bound_bytes is 4 (int32 bounds) or 8 (int64), wrap_bits
+// and wrap_signed the width and signedness the bounds' difference is taken
+// in (32 and 1 for int32 and int64). The grid follows from num_chips and
+// num_slices (gate_grid).
+int tp_slice_gate(const void* candidate, const void* bounds, void* out, int64_t num_chips,
+                  int64_t num_slices, int bound_bytes, int wrap_bits, int wrap_signed,
+                  void* stream) {
+    if (num_chips < 0 || num_slices < 1 || (bound_bytes != 4 && bound_bytes != 8) ||
+        (wrap_bits != 8 && wrap_bits != 16 && wrap_bits != 32) ||
+        gate_grid(num_chips, num_slices).blocks > 0x7fffffff)
+        return int(cudaErrorInvalidValue);
+    const auto c = static_cast<const uint8_t*>(candidate);
+    const auto o = static_cast<uint8_t*>(out);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (bound_bytes == 4)
+        launch_gate<int32_t>(c, bounds, o, num_chips, num_slices, wrap_bits, wrap_signed, s);
+    else
+        launch_gate<int64_t>(c, bounds, o, num_chips, num_slices, wrap_bits, wrap_signed, s);
     return int(cudaGetLastError());
 }
 

@@ -9,9 +9,10 @@ Counterpart of tpu_pruner/policy/engine.py, single device. Data model
 - ``pod_age_s`` f32[C]: age of the owning pod;
 - ``slice_id`` i32[C]: slice membership (0..S-1).
 
-The per-chip pass runs in the hand-written CUDA kernels of ``kernels.py``
-when the tensors lie on the card, and in their plain PyTorch versions when
-they lie on the CPU. The slice reductions are plain PyTorch ops. Functions
+The per-chip pass, and the contiguous slice gate after it, run in the
+hand-written CUDA kernels of ``kernels.py`` when the tensors lie on the
+card, and in their plain PyTorch versions when they lie on the CPU. The
+scatter and reshape slice reductions are plain PyTorch ops. Functions
 follow the device of the tensors they are given; functions that create
 tensors take ``device=`` (default ``"cuda"``) and raise when no card is
 present, unless the caller asked for ``"cpu"``.
@@ -33,7 +34,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .kernels import _FLT_MIN, chip_pass, chip_pass_q, flush_subnormal
+from .kernels import _FLT_MIN, chip_pass, chip_pass_q, flush_subnormal, slice_gate
+from .kernels import slice_counts_contiguous  # noqa: F401 -- the sharded qc path's
 
 
 def resolve_device(device) -> torch.device:
@@ -266,10 +268,14 @@ def evaluate_fleet_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q, num_slices:
     return slice_verdicts(candidate, slice_id, num_slices), candidate
 
 
-# --- contiguous-slice (sorted) fleets: cumsum slice reduction ---------------
+# --- contiguous-slice (sorted) fleets: the slice gate --------------------------
 #
-# When chips are grouped by slice, the per-slice busy count is an inclusive
-# cumsum plus one gather at the segment boundaries instead of a scatter-add.
+# When chips are grouped by slice, a slice's verdict needs only the chips
+# between its two bounds. The reference reads them with an inclusive cumsum
+# plus one gather at the segment boundaries, jitted into one program with
+# the chip pass; on the card the port runs one kernel launch for it
+# (kernels.slice_gate), whose plain version is that cumsum and gather
+# (kernels.slice_counts_contiguous, which the sharded qc path also uses).
 
 
 def slice_bounds(slice_id, num_slices: int, device="cuda") -> torch.Tensor:
@@ -291,26 +297,12 @@ def slice_bounds(slice_id, num_slices: int, device="cuda") -> torch.Tensor:
 
 
 def slice_verdicts_contiguous(candidate, bounds):
-    """slice_verdicts for slice-contiguous chips via cumsum + boundary gather."""
-    busy, chips = slice_counts_contiguous(candidate, bounds)
-    return (busy == 0) & (chips > 0)
-
-
-def slice_counts_contiguous(candidate, bounds):
-    """Per-slice (busy chips, chips) as int32[S] each, by cumsum + gather.
-
-    The C + 1 prefix sums are gathered once at all S + 1 bounds, as the
-    reference's gather reads them: a negative bound counts from the end,
-    and the result is clamped into [0, C], so no bound is ever out of range
-    (which would raise on the CPU and assert on the card). The chip counts
-    are the raw bounds' differences, as in the reference, so an empty or
-    inverted slice is never idle.
-    """
-    busy_cum = torch.cumsum(~candidate, dim=0, dtype=torch.int32)
-    busy_cum = torch.cat([busy_cum.new_zeros(1), busy_cum])
-    num = busy_cum.shape[0]
-    at = busy_cum[bounds.long().clamp(-num, num - 1)]
-    return at[1:] - at[:-1], (bounds[1:] - bounds[:-1]).to(torch.int32)
+    """slice_verdicts for slice-contiguous chips (bool[S]): on the card one
+    launch of the slice gate kernel, on the CPU its plain version, the
+    cumsum + boundary gather. Bounds outside [0, C] are read as the
+    reference's clamping gather reads them; bool and float bounds raise
+    TypeError, as the reference refuses them (kernels.slice_gate)."""
+    return slice_gate(candidate.contiguous(), bounds.contiguous())
 
 
 def evaluate_fleet_c(tc_util, hbm_util, valid, pod_age_s, bounds, params_arr):

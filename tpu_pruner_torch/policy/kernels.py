@@ -15,7 +15,13 @@ each row to one verdict: a bandwidth-bound pass with no tensor-core work.
   which replaces ``_chip_kernel_q``, in one of two designs that
   ``_choose_plan_q`` picks: the row design (``tp_chip_pass_q_rows``) for
   short rows, such as the streaming window's, and the tile design for the
-  rest.
+  rest;
+- ``slice_gate`` (chip verdicts + contiguous slice bounds) launches
+  ``tp_slice_gate``, which has no Pallas counterpart: it is the cumsum slice
+  reduction that the reference leaves to XLA inside its jitted
+  ``evaluate_fleet_c`` and ``_qc``. It splits the work per slice, inside
+  the kernel: a thread reads a short slice alone, and a block reads the
+  long slices of its threads together.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. The plain versions apply the
@@ -41,7 +47,7 @@ from . import _build
 
 _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
-LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0}
+LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
 DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
 F32_DESIGN_LAUNCHES = {"groups": 0, "long": 0, "warps": 0}  # chip_pass's, by design
 
@@ -337,4 +343,97 @@ def _launch_q(tc_q, hbm_q, age, params_q, plan: PlanQ | PlanRows) -> torch.Tenso
     _build.check(status, entry.__name__)
     LAUNCHES["chip_pass_q"] += 1
     DESIGN_LAUNCHES["rows" if rows else "tiles"] += 1
+    return out
+
+
+# --- the contiguous slice gate -----------------------------------------------
+#
+# The work split of tp_slice_gate, which the kernel decides per slice (see
+# csrc/chip_pass.cu); the wrapper only launches a thread a slice. The
+# constants must agree with the kernel's (a CPU test compares them).
+_GATE_THREADS = 512  # kGateThreads: a block, which walks its long slices together
+_GATE_LANE_GRANULES = 8  # kGateLaneGranules: the longest slice a thread reads alone
+_GATE_CHIPS_PER_BLOCK = 16384  # kGateChipsPerBlock: few slices spread over C / this blocks
+_GATE_WALK_GRANULES = 8  # kGateWalkGranules: a thread's granules a round of the walk
+# bounds dtype -> (width and signedness of its difference); int8, int16 and
+# uint8 bounds are widened to int64 for the kernel, which then wraps their
+# difference at their own width
+_GATE_BOUNDS = {torch.int32: (32, True), torch.int64: (32, True), torch.int8: (8, True),
+                torch.int16: (16, True), torch.uint8: (8, False)}
+
+
+def slice_counts_contiguous(candidate, bounds):
+    """Per-slice (busy chips, chips) as int32[S] each, by cumsum + gather.
+
+    The C + 1 prefix sums are gathered once at all S + 1 bounds, as the
+    reference's gather reads them: a negative bound counts from the end,
+    and the result is clamped into [0, C], so no bound is ever out of range
+    (which would raise on the CPU and assert on the card). The chip counts
+    are the raw bounds' differences, as in the reference, so an empty or
+    inverted slice is never idle.
+    """
+    busy_cum = torch.cumsum(~candidate, dim=0, dtype=torch.int32)
+    busy_cum = torch.cat([busy_cum.new_zeros(1), busy_cum])
+    num = busy_cum.shape[0]
+    at = busy_cum[bounds.long().clamp(-num, num - 1)]
+    return at[1:] - at[:-1], (bounds[1:] - bounds[:-1]).to(torch.int32)
+
+
+def slice_gate_plain(candidate, bounds) -> torch.Tensor:
+    """Plain PyTorch version of the slice gate (bool[S]): the cumsum and
+    boundary gather of slice_counts_contiguous."""
+    busy, chips = slice_counts_contiguous(candidate, bounds)
+    return (busy == 0) & (chips > 0)
+
+
+def slice_gate(candidate, bounds) -> torch.Tensor:
+    """Slice verdicts (bool[S]) of slice-contiguous chips: slice s is idle
+    iff int32(bounds[s+1] - bounds[s]) > 0 and none of the chips between its
+    two bounds, read as slice_gate_plain reads them, is busy.
+
+    candidate: bool[C]; bounds: [S+1] of int32 or int64 (the main path's),
+    or int8, int16 or uint8. Bool, float and other integer bounds raise
+    TypeError, as the reference refuses or the plain version cannot take
+    them.
+    """
+    if candidate.dtype != torch.bool:
+        raise TypeError(f"candidate must be torch.bool, got {candidate.dtype}")
+    if bounds.dtype not in _GATE_BOUNDS:
+        raise TypeError(f"bounds must be int32 or int64 (or int8, int16, uint8), "
+                        f"got {bounds.dtype}")
+    for name, t in (("candidate", candidate), ("bounds", bounds)):
+        if t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    device = candidate.device
+    if bounds.device != device:
+        raise ValueError(f"bounds is on {bounds.device}, expected {device}")
+    if device.type == "cpu":
+        return slice_gate_plain(candidate, bounds)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    num_slices = bounds.shape[0] - 1
+    if num_slices <= 0:  # a grid of no blocks is a launch error
+        return torch.empty(0, dtype=torch.bool, device=device)
+    return _launch_gate(candidate, bounds)
+
+
+def _launch_gate(candidate, bounds) -> torch.Tensor:
+    """tp_slice_gate on CUDA tensors that slice_gate has checked (S > 0);
+    returns the bool[S] verdicts. A chip count of 0 still launches: its
+    verdicts are the bounds' differences."""
+    wrap_bits, wrap_signed = _GATE_BOUNDS[bounds.dtype]
+    if bounds.dtype not in (torch.int32, torch.int64):
+        bounds = bounds.to(torch.int64)  # off the main path: one more device op
+    num_slices = bounds.shape[0] - 1
+    out = torch.empty(num_slices, dtype=torch.bool, device=candidate.device)
+    lib = _build.load()
+    with torch.cuda.device(candidate.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tp_slice_gate(candidate.data_ptr(), bounds.data_ptr(), out.data_ptr(),
+                                   candidate.shape[0], num_slices, bounds.element_size(),
+                                   wrap_bits, int(wrap_signed), stream)
+    _build.check(status, "tp_slice_gate")
+    LAUNCHES["slice_gate"] += 1
     return out
