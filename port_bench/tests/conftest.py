@@ -1,0 +1,14 @@
+"""Tests of the benchmark harness: on the CPU, except those marked ``gpu``.
+
+    python -m pytest port_bench/tests -q
+"""
+
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
