@@ -1,0 +1,16 @@
+"""Host time of one ``analyze.parse`` span in an audit, in ms: opening the
+dump and its ``json.load`` (the program's own span, ``tpu_pruner_torch.obs``,
+read after the traced window). None where the program has no such span."""
+
+import importlib
+
+
+def read(run):
+    if run.trace is None or not run.ops:
+        return None
+    try:
+        obs = importlib.import_module("tpu_pruner_torch.obs")
+    except ImportError:
+        return None
+    span = obs.summary()["spans"].get("analyze.parse")
+    return span["total_ms"] / span["count"] if span else None

@@ -6,9 +6,9 @@ written by the test or served from a local HTTP server. Their exit codes
 must be equal, their stdout byte-equal, and their stderr equal once the
 port's module name is read as the reference's. An argparse error also
 prints the usage block, which lists every option: there the port's own
-``--device`` option is taken out and whitespace (line wrapping, which
-depends on the length of the program name) collapsed before comparing;
-the error line itself is compared byte for byte.
+``--device`` and ``--profile`` options are taken out and whitespace (line
+wrapping, which depends on the length of the program name) collapsed
+before comparing; the error line itself is compared byte for byte.
 """
 
 import contextlib
@@ -48,7 +48,8 @@ def normalize_stderr(err, module="analyze"):
         return err
     marker = f"\npython -m tpu_pruner.{module}: error: "
     usage, sep, message = err.partition(marker)
-    usage = " ".join(usage.replace("[--device {cuda,cpu}]", "").split())
+    usage = " ".join(usage.replace("[--device {cuda,cpu}]", "")
+                     .replace("[--profile PATH]", "").split())
     return usage + sep + message
 
 

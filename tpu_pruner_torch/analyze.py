@@ -95,6 +95,16 @@ worst retained traces and the SLO burn from a daemon's ``/debug/traces``.
 Report modes print a human summary on stderr and one JSON document on
 stdout, byte for byte what tpu_pruner.analyze prints, except that
 ``--slow``'s hint names this module.
+
+``--profile PATH`` runs any mode under ``torch.profiler`` (CPU, and CUDA on
+the card) and writes its Chrome trace to PATH; stderr then ends with the
+program's spans (count, total and self ms), its counters' growth (bytes
+copied to and from the card, host syncs, kernel launches) and, on the card,
+the device's idle time by innermost span. Stdout is as without the flag.
+The spans are ``tpu_pruner_torch.obs``'s: ``analyze.main``, ``.parse``,
+``.load_fleet``, ``.release`` (the parsed dump freed), ``.evaluate``,
+``.report`` and, with ``--stream``, ``.state_load``, ``.readback`` and
+``.state_save``, around the engine's own.
 """
 
 from __future__ import annotations
@@ -111,7 +121,10 @@ import urllib.request
 
 import numpy as np
 
+from tpu_pruner_torch import obs
 
+
+@obs.spanned("analyze.load_fleet")
 def load_fleet(doc: dict):
     """Dump document -> ((tc, hbm, valid, age, slice_id), slice_names,
     chip_ids, default_ids), numpy, chips grouped by (slice, chip id)."""
@@ -160,6 +173,7 @@ def load_fleet(doc: dict):
              slice_id[order]), slice_names, ids[order], default_ids)
 
 
+@obs.spanned("analyze.evaluate")
 def evaluate_loaded(fleet, num_slices: int, params, quantize: bool = False,
                     device="cuda", shard: bool = False):
     """Evaluate load_fleet's arrays on ``device``.
@@ -189,7 +203,7 @@ def evaluate_loaded(fleet, num_slices: int, params, quantize: bool = False,
     else:
         bounds = slice_bounds(slice_id, num_slices, device=device)
         verdicts, candidates = evaluate_fleet_c(*inputs[:4], bounds, inputs[5])
-    return verdicts.cpu().numpy(), candidates.cpu().numpy()
+    return obs.to_host(verdicts).numpy(), obs.to_host(candidates).numpy()
 
 
 @contextlib.contextmanager
@@ -242,31 +256,31 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
     now = float(doc.get("timestamp", time.time()))
 
     state_path = args.stream
-    if args.reset or not os.path.exists(state_path):
-        ring = init_window(num_chips, K, device=args.device)
-        chunk_times = np.full(K, np.nan)
-        prev_verdicts = np.zeros(num_slices, dtype=bool)
-    else:
-        with np.load(state_path, allow_pickle=False) as saved:
-            names = np.asarray(slice_names)
-            if (saved["chip_ids"].shape != chip_ids.shape
-                    or (saved["chip_ids"] != chip_ids).any()
-                    or saved["slice_names"].shape != names.shape
-                    or (saved["slice_names"] != names).any()):
-                raise SystemExit(
-                    "stream state fleet mismatch: the dump's chips/slices differ "
-                    f"from {state_path} (chips carry stable ids?); re-init with "
-                    "--reset to start a fresh window")
-            if int(saved["tc_ring"].shape[1]) != K:
-                raise SystemExit(
-                    f"stream state has {saved['tc_ring'].shape[1]} window chunks, "
-                    f"--window-chunks asked for {K}; re-init with --reset")
-            ring = window_from_numpy(
-                (saved["tc_ring"], saved["hbm_ring"], saved["cursor"]), args.device)
-            chunk_times = saved["chunk_times"]
-            prev_verdicts = saved["prev_verdicts"]
-
-    cursor_before = int(ring[2])
+    with obs.span("analyze.state_load"):
+        if args.reset or not os.path.exists(state_path):
+            ring = init_window(num_chips, K, device=args.device)
+            chunk_times = np.full(K, np.nan)
+            prev_verdicts = np.zeros(num_slices, dtype=bool)
+        else:
+            with np.load(state_path, allow_pickle=False) as saved:
+                names = np.asarray(slice_names)
+                if (saved["chip_ids"].shape != chip_ids.shape
+                        or (saved["chip_ids"] != chip_ids).any()
+                        or saved["slice_names"].shape != names.shape
+                        or (saved["slice_names"] != names).any()):
+                    raise SystemExit(
+                        "stream state fleet mismatch: the dump's chips/slices differ "
+                        f"from {state_path} (chips carry stable ids?); re-init with "
+                        "--reset to start a fresh window")
+                if int(saved["tc_ring"].shape[1]) != K:
+                    raise SystemExit(
+                        f"stream state has {saved['tc_ring'].shape[1]} window chunks, "
+                        f"--window-chunks asked for {K}; re-init with --reset")
+                ring = window_from_numpy(
+                    (saved["tc_ring"], saved["hbm_ring"], saved["cursor"]), args.device)
+                chunk_times = saved["chunk_times"]
+                prev_verdicts = saved["prev_verdicts"]
+        cursor_before = int(obs.to_host(ring[2]))
     tc_t, hbm_t, valid_t, age_t, _, parr_t = fleet_from_numpy(
         (tc, hbm, valid, age, slice_id, parr), args.device)
     # this cycle owns the state alone: write the rings in place
@@ -274,59 +288,63 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
                           quantize_samples_device(hbm_t, valid_t))
     chunk_times[cursor_before] = now
 
-    parr_q = torch.from_numpy(quantize_params(parr_t)).to(parr_t.device)
+    parr_q = obs.to_device(torch.from_numpy(quantize_params(parr_t)), parr_t.device)
     bounds = slice_bounds(slice_id, num_slices, device=args.device)
     verdicts, candidates = evaluate_window_qc(ring, age_t, bounds, parr_q)
-    verdicts = verdicts.cpu().numpy()
-    candidates = candidates.cpu().numpy()
+    with obs.span("analyze.readback"):
+        verdicts = obs.to_host(verdicts).numpy()
+        candidates = obs.to_host(candidates).numpy()
 
     # Atomic replace (a crash mid-write must not destroy the accumulated
     # window) via a same-directory temp file; writing through the file
     # object also stops np.savez from appending .npz to plain paths.
-    tmp_path = state_path + ".tmp"
-    with open(tmp_path, "wb") as f:
-        np.savez(f, tc_ring=ring[0].cpu().numpy(), hbm_ring=ring[1].cpu().numpy(),
-                 cursor=int(ring[2]), chunk_times=chunk_times, chip_ids=chip_ids,
-                 slice_names=np.asarray(slice_names), prev_verdicts=verdicts)
-    os.replace(tmp_path, state_path)
+    with obs.span("analyze.state_save"):
+        tmp_path = state_path + ".tmp"
+        with open(tmp_path, "wb") as f:
+            np.savez(f, tc_ring=obs.to_host(ring[0]).numpy(),
+                     hbm_ring=obs.to_host(ring[1]).numpy(),
+                     cursor=int(obs.to_host(ring[2])), chunk_times=chunk_times,
+                     chip_ids=chip_ids, slice_names=np.asarray(slice_names),
+                     prev_verdicts=verdicts)
+        os.replace(tmp_path, state_path)
+    with obs.span("analyze.report"):
+        newly = [slice_names[i] for i in range(num_slices)
+                 if verdicts[i] and not prev_verdicts[i]]
+        gone = [slice_names[i] for i in range(num_slices)
+                if prev_verdicts[i] and not verdicts[i]]
+        filled = int(np.count_nonzero(~np.isnan(chunk_times)))
+        ages = now - chunk_times[~np.isnan(chunk_times)]  # >= 1: this cycle's chunk
+        window = {
+            "chunks": K,
+            "filled": filled,
+            "fill_fraction": round(filled / K, 3),
+            # verdicts over a part-filled window cover only the cycles seen so far
+            "partial": filled < K,
+            "oldest_chunk_age_s": round(float(ages.max()), 1),
+            "newest_chunk_age_s": round(float(ages.min()), 1),
+        }
 
-    newly = [slice_names[i] for i in range(num_slices)
-             if verdicts[i] and not prev_verdicts[i]]
-    gone = [slice_names[i] for i in range(num_slices)
-            if prev_verdicts[i] and not verdicts[i]]
-    filled = int(np.count_nonzero(~np.isnan(chunk_times)))
-    ages = now - chunk_times[~np.isnan(chunk_times)]  # >= 1: this cycle's chunk
-    window = {
-        "chunks": K,
-        "filled": filled,
-        "fill_fraction": round(filled / K, 3),
-        # verdicts over a part-filled window cover only the cycles seen so far
-        "partial": filled < K,
-        "oldest_chunk_age_s": round(float(ages.max()), 1),
-        "newest_chunk_age_s": round(float(ages.min()), 1),
-    }
+        for name in newly:
+            print(f"{name}: newly IDLE — reclaimable", file=sys.stderr)
+        for name in gone:
+            print(f"{name}: active again", file=sys.stderr)
+        print(f"window {filled}/{K} chunks"
+              + (" (PARTIAL — verdicts cover only the cycles seen)"
+                 if window["partial"] else ""), file=sys.stderr)
 
-    for name in newly:
-        print(f"{name}: newly IDLE — reclaimable", file=sys.stderr)
-    for name in gone:
-        print(f"{name}: active again", file=sys.stderr)
-    print(f"window {filled}/{K} chunks"
-          + (" (PARTIAL — verdicts cover only the cycles seen)"
-             if window["partial"] else ""), file=sys.stderr)
-
-    print(json.dumps({
-        "num_chips": num_chips,
-        "num_slices": num_slices,
-        "idle_chips": int(candidates.sum()),
-        "reclaimable_slices": [slice_names[i] for i in range(num_slices)
-                               if verdicts[i]],
-        "newly_reclaimable": newly,
-        "no_longer_reclaimable": gone,
-        "window": window,
-        "lookback_s": params.lookback_s,
-        "hbm_threshold": params.hbm_threshold,
-    }))
-    return 0
+        print(json.dumps({
+            "num_chips": num_chips,
+            "num_slices": num_slices,
+            "idle_chips": int(candidates.sum()),
+            "reclaimable_slices": [slice_names[i] for i in range(num_slices)
+                                   if verdicts[i]],
+            "newly_reclaimable": newly,
+            "no_longer_reclaimable": gone,
+            "window": window,
+            "lookback_s": params.lookback_s,
+            "hbm_threshold": params.hbm_threshold,
+        }))
+        return 0
 
 
 def _load_decision_records(args) -> list[dict]:
@@ -1193,7 +1211,21 @@ def main(argv=None) -> int:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where to evaluate: the CUDA kernels on the card "
                              "(default) or their plain versions on the CPU")
+    parser.add_argument("--profile", metavar="PATH",
+                        help="run the mode under torch.profiler (CPU, and CUDA on "
+                             "the card), write its Chrome trace to PATH and print "
+                             "the program's spans and counters to stderr, on the "
+                             "card with the device's idle time by span")
     args = parser.parse_args(argv)
+    if args.profile:
+        return obs.profile(args.profile, lambda: _main(parser, args),
+                           cuda=args.device == "cuda")
+    return _main(parser, args)
+
+
+@obs.spanned("analyze.main")
+def _main(parser, args) -> int:
+    """main after its arguments are parsed: one span, ``analyze.main``."""
     if args.trace:
         if (args.gym or args.replay or args.explain or args.fleet_report
                 or args.signal_report or args.capacity_report or args.slow):
@@ -1266,11 +1298,12 @@ def main(argv=None) -> int:
 
     from tpu_pruner_torch.policy import PolicyParams
 
-    if args.dump == "-":
-        doc = json.load(sys.stdin)
-    else:
-        with open(args.dump) as f:
-            doc = json.load(f)
+    with obs.span("analyze.parse"):
+        if args.dump == "-":
+            doc = json.load(sys.stdin)
+        else:
+            with open(args.dump) as f:
+                doc = json.load(f)
     fleet, slice_names, chip_ids, default_ids = load_fleet(doc)
     slice_id = fleet[4]
     if args.stream and default_ids:
@@ -1292,6 +1325,8 @@ def main(argv=None) -> int:
     num_slices = len(slice_names)
     if args.stream:
         return _run_stream(args, doc, fleet, slice_names, chip_ids, params)
+    with obs.span("analyze.release"):  # freeing a large dump's objects takes a while
+        del doc, chip_ids
     if args.shard:
         import torch.distributed as dist
 
@@ -1306,25 +1341,26 @@ def main(argv=None) -> int:
                                                quantize=args.quantize,
                                                device=args.device)
 
-    chips_per_slice = np.bincount(slice_id, minlength=num_slices)
-    idle_per_slice = np.bincount(slice_id, weights=candidates, minlength=num_slices)
-    print(f"{'slice':40s} {'chips':>6s} {'idle':>6s} verdict", file=sys.stderr)
-    for i, name in enumerate(slice_names):
-        print(f"{name:40s} {int(chips_per_slice[i]):6d} "
-              f"{int(idle_per_slice[i]):6d} "
-              f"{'IDLE — reclaimable' if verdicts[i] else 'active'}",
-              file=sys.stderr)
+    with obs.span("analyze.report"):
+        chips_per_slice = np.bincount(slice_id, minlength=num_slices)
+        idle_per_slice = np.bincount(slice_id, weights=candidates, minlength=num_slices)
+        print(f"{'slice':40s} {'chips':>6s} {'idle':>6s} verdict", file=sys.stderr)
+        for i, name in enumerate(slice_names):
+            print(f"{name:40s} {int(chips_per_slice[i]):6d} "
+                  f"{int(idle_per_slice[i]):6d} "
+                  f"{'IDLE — reclaimable' if verdicts[i] else 'active'}",
+                  file=sys.stderr)
 
-    print(json.dumps({
-        "num_chips": int(len(slice_id)),
-        "num_slices": num_slices,
-        "idle_chips": int(candidates.sum()),
-        "reclaimable_slices": [slice_names[i] for i in range(num_slices)
-                               if verdicts[i]],
-        "lookback_s": params.lookback_s,
-        "hbm_threshold": params.hbm_threshold,
-    }))
-    return 0
+        print(json.dumps({
+            "num_chips": int(len(slice_id)),
+            "num_slices": num_slices,
+            "idle_chips": int(candidates.sum()),
+            "reclaimable_slices": [slice_names[i] for i in range(num_slices)
+                                   if verdicts[i]],
+            "lookback_s": params.lookback_s,
+            "hbm_threshold": params.hbm_threshold,
+        }))
+        return 0
 
 
 if __name__ == "__main__":

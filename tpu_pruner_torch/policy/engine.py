@@ -25,6 +25,11 @@ strided views (``normalize_inputs``); int8-path samples of any dtype
 (``normalize_slice_ids``); and contiguous bounds outside ``[0, C]``, read
 as the reference's clamping gather reads them. The kernel wrappers stay
 strict.
+
+Each entry is one span of ``obs`` (``engine.upload``, ``.quantize``,
+``.update``, ``.params``, ``.bounds``, ``.evaluate``), and each copy between
+the host and a device goes through ``obs.to_device`` or ``obs.to_host``,
+which count its bytes.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from .kernels import _FLT_MIN, chip_pass, chip_pass_q, flush_subnormal, slice_gate
 from .kernels import slice_counts_contiguous  # noqa: F401 -- the sharded qc path's
 
@@ -65,15 +71,15 @@ class PolicyParams:
 
 def params_array(params: PolicyParams, device="cuda") -> torch.Tensor:
     """f32[2] = [lookback_s, hbm_cutoff] on ``device``."""
-    return torch.tensor([params.lookback_s, params.hbm_cutoff()],
-                        dtype=torch.float32, device=resolve_device(device))
+    return obs.to_device(torch.tensor([params.lookback_s, params.hbm_cutoff()],
+                                      dtype=torch.float32), resolve_device(device))
 
 
 def _param_pair(lookback_s, hbm_cutoff, like: torch.Tensor) -> torch.Tensor:
     if isinstance(lookback_s, torch.Tensor) and isinstance(hbm_cutoff, torch.Tensor):
         return torch.stack([lookback_s, hbm_cutoff]).to(torch.float32)
-    return torch.tensor([float(lookback_s), float(hbm_cutoff)],
-                        dtype=torch.float32, device=like.device)
+    return obs.to_device(torch.tensor([float(lookback_s), float(hbm_cutoff)],
+                                      dtype=torch.float32), like.device)
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -151,6 +157,7 @@ def normalize_slice_ids(slice_id: torch.Tensor) -> torch.Tensor:
     return slice_id.to(torch.int64)
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_chips(tc_util, hbm_util, valid, pod_age_s, lookback_s, hbm_cutoff):
     """Per-chip idle-candidate mask (bool[C]).
 
@@ -191,6 +198,7 @@ def slice_counts(candidate, slice_id, num_slices: int):
     return busy[:num_slices], chips[:num_slices]
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_fleet(tc_util, hbm_util, valid, pod_age_s, slice_id, params_arr,
                    num_slices: int):
     """Single-device evaluation: (slice_idle bool[S], chip_candidate bool[C]).
@@ -227,6 +235,7 @@ def quantize_samples(util, valid) -> np.ndarray:
     return np.where(np.asarray(valid, dtype=bool), q, INVALID_Q).astype(np.int8)
 
 
+@obs.spanned("engine.quantize")
 def quantize_samples_device(util: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """quantize_samples on the tensors' device, bit-identical to the numpy one.
 
@@ -242,23 +251,26 @@ def quantize_samples_device(util: torch.Tensor, valid: torch.Tensor) -> torch.Te
     return torch.where(valid, q, torch.full_like(q, INVALID_Q)).to(torch.int8)
 
 
+@obs.spanned("engine.params")
 def quantize_params(params_arr) -> np.ndarray:
     """[lookback_s, hbm_cutoff] -> [lookback_s, ceil(cutoff * SCALE)].
 
     A disabled cutoff (+inf) stays +inf.
     """
     if isinstance(params_arr, torch.Tensor):
-        params_arr = params_arr.cpu().numpy()
+        params_arr = obs.to_host(params_arr).numpy()
     arr = np.asarray(params_arr, dtype=np.float32)
     return np.array([arr[0], np.ceil(arr[1] * UTIL_SCALE)], dtype=np.float32)
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_chips_q(tc_q, hbm_q, pod_age_s, lookback_s, hbm_cutoff_q):
     """evaluate_chips over int8 quantized samples (bool[C])."""
     return chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s,
                                            _param_pair(lookback_s, hbm_cutoff_q, tc_q)))
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_fleet_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q, num_slices: int):
     """evaluate_fleet over int8 quantized samples.
 
@@ -278,6 +290,7 @@ def evaluate_fleet_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q, num_slices:
 # (kernels.slice_counts_contiguous, which the sharded qc path also uses).
 
 
+@obs.spanned("engine.bounds")
 def slice_bounds(slice_id, num_slices: int, device="cuda") -> torch.Tensor:
     """Host-side segment bounds (int32[S+1]) for slice-contiguous fleets.
 
@@ -286,14 +299,14 @@ def slice_bounds(slice_id, num_slices: int, device="cuda") -> torch.Tensor:
     and are never idle.
     """
     if isinstance(slice_id, torch.Tensor):
-        slice_id = slice_id.cpu().numpy()
+        slice_id = obs.to_host(slice_id).numpy()
     sid = np.asarray(slice_id)
     if sid.size and (np.diff(sid) < 0).any():
         raise ValueError(
             "slice_id must be sorted ascending for the contiguous evaluator; "
             "sort chips by slice at ingest or use evaluate_fleet")
     bounds = np.searchsorted(sid, np.arange(num_slices + 1)).astype(np.int32)
-    return torch.from_numpy(bounds).to(resolve_device(device))
+    return obs.to_device(torch.from_numpy(bounds), resolve_device(device))
 
 
 def slice_verdicts_contiguous(candidate, bounds):
@@ -305,6 +318,7 @@ def slice_verdicts_contiguous(candidate, bounds):
     return slice_gate(candidate.contiguous(), bounds.contiguous())
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_fleet_c(tc_util, hbm_util, valid, pod_age_s, bounds, params_arr):
     """evaluate_fleet for slice-contiguous fleets (bounds = slice_bounds)."""
     candidate = chip_pass(*normalize_inputs(tc_util, hbm_util, valid, pod_age_s,
@@ -312,6 +326,7 @@ def evaluate_fleet_c(tc_util, hbm_util, valid, pod_age_s, bounds, params_arr):
     return slice_verdicts_contiguous(candidate, bounds), candidate
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_fleet_qc(tc_q, hbm_q, pod_age_s, bounds, params_arr_q):
     """evaluate_fleet_q for slice-contiguous fleets (int8 storage + cumsum)."""
     candidate = chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q))
@@ -326,7 +341,7 @@ def assert_uniform_slices(slice_id, chips_per_slice: int) -> int:
     verdicts. Run this at ingest, where the layout is decided.
     """
     if isinstance(slice_id, torch.Tensor):
-        slice_id = slice_id.cpu().numpy()
+        slice_id = obs.to_host(slice_id).numpy()
     sid = np.asarray(slice_id)
     if sid.size % chips_per_slice != 0:
         raise ValueError(
@@ -341,6 +356,7 @@ def assert_uniform_slices(slice_id, chips_per_slice: int) -> int:
     return num_slices
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_fleet_qu(tc_q, hbm_q, pod_age_s, params_arr_q, chips_per_slice: int):
     """Uniform-fleet path: int8 storage + equal-size contiguous slices.
 
@@ -376,6 +392,7 @@ def init_window(num_chips: int, num_chunks: int, device="cuda"):
     return ring, ring.clone(), torch.zeros((), dtype=torch.int32, device=device)
 
 
+@obs.spanned("engine.update")
 def update_window(state, tc_q_new, hbm_q_new):
     """Fold one cycle's new int8 samples ([C, T_new]) into the rings.
 
@@ -388,6 +405,7 @@ def update_window(state, tc_q_new, hbm_q_new):
     return update_window_((tc_ring.clone(), hbm_ring.clone(), cursor), tc_q_new, hbm_q_new)
 
 
+@obs.spanned("engine.update")
 def update_window_(state, tc_q_new, hbm_q_new):
     """update_window that writes the column into ``state``'s own rings.
 
@@ -400,13 +418,14 @@ def update_window_(state, tc_q_new, hbm_q_new):
     """
     tc_ring, hbm_ring, cursor = state
     num_chunks = tc_ring.shape[1]
-    cursor = torch.as_tensor(cursor, dtype=torch.int32, device=tc_ring.device)
+    cursor = obs.to_device(torch.as_tensor(cursor, dtype=torch.int32), tc_ring.device)
     column = cursor.view(1).long().clamp_(-num_chunks, num_chunks - 1).remainder_(num_chunks)
     tc_ring.index_copy_(1, column, tc_q_new.amax(dim=1, keepdim=True))
     hbm_ring.index_copy_(1, column, hbm_q_new.amax(dim=1, keepdim=True))
     return tc_ring, hbm_ring, (cursor + 1) % num_chunks
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_window_qc(state, pod_age_s, bounds, params_arr_q):
     """Slice verdicts from streaming state (contiguous fleets).
 
@@ -418,6 +437,7 @@ def evaluate_window_qc(state, pod_age_s, bounds, params_arr_q):
     return evaluate_fleet_qc(tc_ring, hbm_ring, pod_age_s, bounds, params_arr_q)
 
 
+@obs.spanned("engine.evaluate")
 def evaluate_window_qu(state, pod_age_s, params_arr_q, chips_per_slice: int):
     """evaluate_window_qc for uniform fleets (the reshape reduction)."""
     tc_ring, hbm_ring, _ = state
@@ -425,6 +445,7 @@ def evaluate_window_qu(state, pod_age_s, params_arr_q, chips_per_slice: int):
                              chips_per_slice)
 
 
+@obs.spanned("engine.upload")
 def window_from_numpy(state, device="cuda"):
     """Streaming state as numpy (int8 rings, an integer cursor) -> tensors.
 
@@ -435,11 +456,12 @@ def window_from_numpy(state, device="cuda"):
     tc_ring, hbm_ring, cursor = state
     # copies: update_window_ writes the rings in place, and on the CPU
     # from_numpy would share (possibly read-only) numpy memory
-    rings = tuple(torch.from_numpy(np.array(x, dtype=np.int8, order="C")).to(device)
-                  for x in (tc_ring, hbm_ring))
-    return (*rings, torch.tensor(int(cursor), dtype=torch.int32, device=device))
+    rings = tuple(obs.to_device(torch.from_numpy(np.array(x, dtype=np.int8, order="C")),
+                                device) for x in (tc_ring, hbm_ring))
+    return (*rings, obs.to_device(torch.tensor(int(cursor), dtype=torch.int32), device))
 
 
+@obs.spanned("engine.quantize")
 def quantize_fleet_inputs(inputs):
     """Convert evaluate_fleet's input tuple to evaluate_fleet_q's, on its device.
 
@@ -452,10 +474,11 @@ def quantize_fleet_inputs(inputs):
         quantize_samples_device(hbm, valid),
         age,
         slice_id,
-        torch.from_numpy(quantize_params(params_arr)).to(tc.device),
+        obs.to_device(torch.from_numpy(quantize_params(params_arr)), tc.device),
     )
 
 
+@obs.spanned("engine.upload")
 def fleet_from_numpy(inputs, device="cuda"):
     """The JAX package's evaluate_fleet input tuple, as numpy, -> tensors.
 
@@ -468,7 +491,7 @@ def fleet_from_numpy(inputs, device="cuda"):
     tc, hbm, valid, age, slice_id, params_arr = inputs
     dtypes = (np.float32, np.float32, bool, np.float32, np.int32, np.float32)
     return tuple(
-        torch.from_numpy(np.ascontiguousarray(x, dtype=dt)).to(device)
+        obs.to_device(torch.from_numpy(np.ascontiguousarray(x, dtype=dt)), device)
         for x, dt in zip((tc, hbm, valid, age, slice_id, params_arr), dtypes))
 
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from .engine import (INVALID_Q, evaluate_fleet_qu, init_window, normalize_inputs,
                      normalize_inputs_q, normalize_slice_ids, resolve_device,
                      slice_counts, slice_counts_contiguous, update_window)
@@ -194,11 +195,11 @@ def shard_bounds(bounds, n_shards: int, shard_size: int, device="cuda") -> torch
     that lives on shard d (possibly empty).
     """
     if isinstance(bounds, torch.Tensor):
-        bounds = bounds.cpu().numpy()
+        bounds = obs.to_host(bounds).numpy()
     b = np.asarray(bounds)
     offs = np.arange(n_shards, dtype=np.int64) * shard_size
     local = np.clip(b[None, :] - offs[:, None], 0, shard_size).astype(np.int32)
-    return torch.from_numpy(local).to(resolve_device(device))
+    return obs.to_device(torch.from_numpy(local), resolve_device(device))
 
 
 def make_sharded_evaluator_qc(num_slices: int, group=None):
@@ -299,7 +300,7 @@ def make_sharded_stream_step(chips_per_slice: int, group=None):
 
 def _to_device(obj, device):
     if isinstance(obj, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(obj)).to(device)
+        return obs.to_device(torch.from_numpy(np.ascontiguousarray(obj)), device)
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_device(x, device) for x in obj)
     return obj
@@ -307,7 +308,7 @@ def _to_device(obj, device):
 
 def _to_host(obj):
     if isinstance(obj, torch.Tensor):
-        return obj.cpu().numpy()
+        return obs.to_host(obj).numpy()
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_host(x) for x in obj)
     if isinstance(obj, dict):
