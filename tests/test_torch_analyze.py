@@ -18,6 +18,7 @@ import pytest
 from tpu_pruner import analyze as jax_analyze
 from tpu_pruner.native import REPO_ROOT
 from tpu_pruner_torch import analyze as torch_analyze
+from tpu_pruner_torch import obs
 
 
 def chip(slice_name, tc, hbm=None, age=7200, chip_id=None):
@@ -354,3 +355,81 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
     assert json.loads(report)["reclaimed_chip_hours"] == round(2400.0 / 3600, 3)
     assert "across 1 tracked workload(s)" in proc.stderr
     assert bad == "BAD="
+
+
+# -- the native dump reader and its fallback, against the reference's json.load
+
+def reader_dump(escaped: bool) -> str:
+    """A dump in the shapes dump.py writes, with unknown keys, positional
+    ids, NaN and ragged series; ``escaped`` writes one slice name with an
+    escape, which the native reader leaves to json.load."""
+    busy = "ml\\/busy" if escaped else "ml/busy"
+    return (
+        '{"timestamp": 1180.5, "lookback_s": 2100, "hbm_threshold": 0.05, "source": {"v": 2},\n'
+        ' "chips": [\n'
+        '  {"slice": "ml/idle", "id": "ml/idle-0/1", "pod_age_s": 7200.0,'
+        ' "tc": [0.0, 0.0, 0.0], "hbm": [0.01, 0.0, 0.02]},\n'
+        '  {"slice": "' + busy + '", "id": "ml/busy-0/0", "pod_age_s": 7200,'
+        ' "tc": [0.0, 0.25, NaN], "hbm": [0.1]},\n'
+        '  {"slice": "ml/idle", "id": "ml/idle-0/0", "pod_age_s": 9000.25, "tc": [0.0, 0.0],'
+        ' "labels": {"zone": "a"}},\n'
+        '  {"slice": "ml/young", "pod_age_s": 60, "tc": [0.0, 0.0, 0.0], "hbm": null},\n'
+        '  {"slice": "ml/busy", "id": "ml/busy-0/1", "pod_age_s": 7200, "tc": [1e-40, 0.0]}\n'
+        ' ]}\n')
+
+
+READER_MODES = {"batch": [], "quantize": ["--quantize"], "stream": ["--stream"]}
+
+
+def cli_bytes(main, argv):
+    """(exit code, stdout, stderr) of one in-process run, whole."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("mode", sorted(READER_MODES))
+@pytest.mark.parametrize("escaped", [False, True], ids=["native", "fallback"])
+def test_reader_paths_print_the_reference_bytes(tmp_path, escaped, mode):
+    """A dump the native reader takes and one it leaves to json.load: the
+    port prints the reference's stdout and stderr byte for byte, in the
+    batch path, --quantize and two --stream cycles (whose window ages come
+    from the dumps' timestamps), and counts the path it took."""
+    path = tmp_path / "dump.json"
+    stream = mode == "stream"
+    for cycle in range(2 if stream else 1):
+        path.write_text(reader_dump(escaped).replace("1180.5", str(1180.5 + 180 * cycle)))
+        extra = [*READER_MODES[mode]]
+        ref = cli_bytes(jax_analyze.main,
+                        [str(path), *extra, *[str(tmp_path / "ref.npz")] * stream])
+        before = dict(obs.counts)
+        got = cli_bytes(torch_analyze.main, [str(path), "--device", "cpu", *extra,
+                                             *[str(tmp_path / "got.npz")] * stream])
+        assert obs.counts["ingest_native"] - before["ingest_native"] == int(not escaped)
+        assert obs.counts["ingest_fallback"] - before["ingest_fallback"] == int(escaped)
+        assert got == ref
+    line = json.loads(got[1])
+    if stream:
+        assert line["window"]["oldest_chunk_age_s"] == 180.0
+    else:
+        assert line["reclaimable_slices"] == ["ml/idle"]
+
+
+@pytest.mark.parametrize("escaped", [False, True], ids=["native", "fallback"])
+def test_reader_reads_stdin_as_the_reference_does(tmp_path, escaped):
+    """``-`` reads the dump from stdin, on either path: the port's process
+    prints the reference's stdout and stderr byte for byte."""
+    path = tmp_path / "dump.json"
+    path.write_text(reader_dump(escaped))
+    env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu", "HOME": str(tmp_path)}
+    outs = []
+    for module, extra in (("tpu_pruner.analyze", []),
+                          ("tpu_pruner_torch.analyze", ["--device", "cpu"])):
+        with open(path, "rb") as stdin:
+            proc = subprocess.run([sys.executable, "-m", module, "-", *extra], stdin=stdin,
+                                  capture_output=True, timeout=300, cwd=REPO_ROOT, env=env)
+        assert proc.returncode == 0, proc.stderr
+        outs.append((proc.stdout, proc.stderr))
+    assert outs[0] == outs[1]
+    assert json.loads(outs[1][0])["reclaimable_slices"] == ["ml/idle"]

@@ -29,6 +29,13 @@ The default evaluates f32 samples with the contiguous cumsum reduction
 (evaluate_fleet_c); ``--quantize`` evaluates int8 samples
 (evaluate_fleet_qc).
 
+Every dump mode reads the dump's bytes with a native reader
+(``tpu_pruner_torch.dump_reader``, C++ built with the host's compiler at
+first use) straight into the grouped arrays. A document it does not take
+(an escaped or non-ASCII string, a repeated key, a value of another type
+than the format's, invalid JSON, ...) goes through ``json.load``, with the
+same result or the same error.
+
 Sharded mode (``--shard``): the chip axis is split over the ranks of a
 torch.distributed group, evaluate_fleet_sharded (f32) or
 evaluate_fleet_sharded_q (``--quantize``). Under ``torchrun`` the group,
@@ -99,9 +106,10 @@ stdout, byte for byte what tpu_pruner.analyze prints, except that
 ``--profile PATH`` runs any mode under ``torch.profiler`` (CPU, and CUDA on
 the card) and writes its Chrome trace to PATH; stderr then ends with the
 program's spans (count, total and self ms), its counters' growth (bytes
-copied to and from the card, host syncs, kernel launches) and, on the card,
-the device's idle time by innermost span. Stdout is as without the flag.
-The spans are ``tpu_pruner_torch.obs``'s: ``analyze.main``, ``.parse``,
+copied to and from the card, host syncs, kernel launches, dumps read by the
+native reader and by ``json.load``) and, on the card, the device's idle
+time by innermost span. Stdout is as without the flag. The spans are
+``tpu_pruner_torch.obs``'s: ``analyze.main``, ``.parse`` (the dump read),
 ``.load_fleet``, ``.release`` (the parsed dump freed), ``.evaluate``,
 ``.report`` and, with ``--stream``, ``.state_load``, ``.readback`` and
 ``.state_save``, around the engine's own.
@@ -121,13 +129,18 @@ import urllib.request
 
 import numpy as np
 
-from tpu_pruner_torch import obs
+from tpu_pruner_torch import dump_reader, obs
 
 
 @obs.spanned("analyze.load_fleet")
-def load_fleet(doc: dict):
+def load_fleet(doc):
     """Dump document -> ((tc, hbm, valid, age, slice_id), slice_names,
-    chip_ids, default_ids), numpy, chips grouped by (slice, chip id)."""
+    chip_ids, default_ids), numpy, chips grouped by (slice, chip id).
+
+    ``doc`` is the parsed document, or a ``dump_reader.Scan`` of a dump the
+    native reader took, which gives the same result bit for bit."""
+    if isinstance(doc, dump_reader.Scan):
+        return doc.fleet()
     chips = doc["chips"]
     if not chips:
         raise ValueError("empty fleet: no chips in dump")
@@ -1299,11 +1312,7 @@ def _main(parser, args) -> int:
     from tpu_pruner_torch.policy import PolicyParams
 
     with obs.span("analyze.parse"):
-        if args.dump == "-":
-            doc = json.load(sys.stdin)
-        else:
-            with open(args.dump) as f:
-                doc = json.load(f)
+        doc = dump_reader.read(args.dump)
     fleet, slice_names, chip_ids, default_ids = load_fleet(doc)
     slice_id = fleet[4]
     if args.stream and default_ids:
