@@ -27,9 +27,10 @@ as the reference's clamping gather reads them. The kernel wrappers stay
 strict.
 
 Each entry is one span of ``obs`` (``engine.upload``, ``.quantize``,
-``.update``, ``.params``, ``.bounds``, ``.evaluate``), and each copy between
-the host and a device goes through ``obs.to_device`` or ``obs.to_host``,
-which count its bytes.
+``.update``, ``.params``, ``.bounds``, ``.evaluate``); inside
+``evaluate_fleet`` and ``_q`` the scatter reduction is one more
+(``engine.reduce``). Each copy between the host and a device goes through
+``obs.to_device`` or ``obs.to_host``, which count its bytes.
 """
 
 from __future__ import annotations
@@ -207,7 +208,8 @@ def evaluate_fleet(tc_util, hbm_util, valid, pod_age_s, slice_id, params_arr,
     """
     candidate = chip_pass(*normalize_inputs(tc_util, hbm_util, valid, pod_age_s,
                                             params_arr))
-    return slice_verdicts(candidate, slice_id, num_slices), candidate
+    with obs.span("engine.reduce"):
+        return slice_verdicts(candidate, slice_id, num_slices), candidate
 
 
 # --- int8 quantized sample storage ------------------------------------------
@@ -277,7 +279,8 @@ def evaluate_fleet_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q, num_slices:
     params_arr_q: f32[2] = [lookback_s, quantized cutoff] (quantize_params).
     """
     candidate = chip_pass_q(*normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q))
-    return slice_verdicts(candidate, slice_id, num_slices), candidate
+    with obs.span("engine.reduce"):
+        return slice_verdicts(candidate, slice_id, num_slices), candidate
 
 
 # --- contiguous-slice (sorted) fleets: the slice gate --------------------------
