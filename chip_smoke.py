@@ -9,7 +9,8 @@ Phases, each of which exits non-zero on failure:
    row design at T = 12, and its registers and spills over every T it has a
    kernel for; the f32 pass's group design for each samples-a-lane it has a
    kernel for, and its long-row design for each samples a lane a chunk;
-   the slice gate), and print the card's name and power limit;
+   the slice gate; the scatter reduction's two kernels), and print the
+   card's name and power limit;
 2. hold the slice gate against its plain version bit for bit on
    gate_cases (bounds outside [0, C], out of order, empty, inverted and
    one-chip slices in five integer dtypes, differences that wrap in int32
@@ -17,7 +18,11 @@ Phases, each of which exits non-zero on failure:
    with busy chips at a slice's first and last chip, 16-chip slices mixed
    with long ones, S = 0, C = 0, the main path's shapes, a mixed fleet of
    1,048,576 chips), the candidate at four offsets off a 16-byte boundary,
-   one launch a case (none where S = 0); then hold each
+   one launch a case (none where S = 0); then the scatter reduction
+   likewise on scatter_cases (ids outside [0, S) in int32 and int64, int64
+   ids past 2^31 and 2^32, empty slices, one slice of all chips, 1-chip
+   slices, the gke-65k layout cut and whole, S = 0, S = 1, C = 0; none
+   launches where S = 0 or C = 0); then hold each
    chip pass against its plain PyTorch version on an adversarial
    fleet (ragged chip counts, T in {1, 12, 31, 360, 361}, all-invalid rows,
    NaN, subnormals, -0.0, +-inf, finite/+inf/subnormal cutoffs, young
@@ -38,7 +43,8 @@ Phases, each of which exits non-zero on failure:
    the reference takes and the kernel wrappers refuse (input_cases: slice
    ids outside [0, S) as int32, int64, int8 and uint8, bf16, f16 and f64
    samples, an integer mask, f64 ages, strided views) through
-   evaluate_fleet(_cuda) and evaluate_fleet_q(_cuda); int16, uint8 and f32
+   evaluate_fleet(_cuda) and evaluate_fleet_q(_cuda), each one launch of
+   its pass and of the scatter reduction; int16, uint8 and f32
    samples on the int8 paths (q_input_cases) through evaluate_fleet_q, _qc,
    _qu and evaluate_fleet_cuda_q, _qc; and bounds outside [0, C] through
    evaluate_fleet_c, _qc and evaluate_fleet_cuda_qc (each one launch of
@@ -46,7 +52,8 @@ Phases, each of which exits non-zero on failure:
    to its plain version, and every kernel launches, and equals its plain
    version, after the bad-bounds case;
 3. drive the main path at full width -- 131,072 chips x 360 samples in
-   8,192 slices -- through evaluate_fleet, evaluate_fleet_c,
+   8,192 slices -- through evaluate_fleet, evaluate_fleet_cuda,
+   evaluate_fleet_q, evaluate_fleet_cuda_q, evaluate_fleet_c,
    quantize_fleet_inputs + evaluate_fleet_qc, the uniform path
    (assert_uniform_slices + evaluate_fleet_qu: the fleet is 16 chips a
    slice), the analyze evaluation, and the analyze CLI (batch, --shard in a
@@ -59,8 +66,9 @@ Phases, each of which exits non-zero on failure:
    just after) must launch its own pass exactly once and the other never,
    and the slice gate exactly once on every contiguous path (_c, _qc,
    evaluate_fleet_cuda_qc, analyze's evaluation and CLI without --shard)
-   and never elsewhere, and each kernel must equal its plain version on the
-   main path's inputs;
+   and the scatter reduction exactly once on every scatter path
+   (evaluate_fleet, _q and their CUDA entry points), and neither elsewhere,
+   and each kernel must equal its plain version on the main path's inputs;
 4. time each kernel with CUDA events (median over many launches) beside
    its plain version and its bound at the card's published rates: warm
    (back to back) and cold (a 256 MB scratch buffer zeroed before each
@@ -92,7 +100,12 @@ Phases, each of which exits non-zero on failure:
    the slice gate on one slice of 1,048,576 chips, on 1,048,576 slices
    of one chip, on mixed fleets (16-chip slices and one each of 4,096,
    8,960 and 65,536 chips) and by average slice length at 131,072 and
-   1,048,576 chips (gate_fleets); and the f32 designs for
+   1,048,576 chips (gate_fleets); the scatter reduction (one call: its
+   memset and two kernels) warm and cold beside its plain version, an
+   empty kernel and its bound, on the gke-65k layout (260,000 chips in
+   23,149 groups, host order), 1,048,576 chips in 65,536 shuffled slices,
+   one slice of 1,048,576 chips idle but one, and 1,048,576 one-chip slices
+   (scatter_rows); and the f32 designs for
    each T of f32_timing_t(C) at the three sizes (rows of 1 to 2,880
    samples; the long-row design also at its other samples a lane), and
    where the plan's design was not the fastest;
@@ -127,7 +140,9 @@ and 6
 and its XL times under "xl" (the int8 kernel also its T = 12 times under
 "window" and its sweep under "design_sweep", the f32 kernel its times at
 the dump's width and its sweep under "dump", the slice gate, which has no
-Pallas counterpart, its other fleets and sweep under "fleets"); the line before
+Pallas counterpart, its other fleets and sweep under "fleets", and the
+scatter reduction, which has none either, its shapes under "fleets"); the
+line before
 it is {"end_to_end": {...}}, phase 4's end-to-end times at both sizes; the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -168,7 +183,8 @@ from tpu_pruner_torch.policy.kernels import (
     _F32_GROUPS_K, _F32_GROUPS_MAX_T, _F32_LONG_K, _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES,
     _F32_WARPS_PER_BLOCK, F32_DESIGN_LAUNCHES, F32_DESIGNS, PlanLong, PlanRows, PlanWarps,
     _choose_plan_f32, _choose_plan_q, _f32_plans, _launch_f32, _launch_q, _plan_q, _plan_q_rows,
-    _sm_count, slice_gate, slice_gate_plain)
+    _sm_count, normalize_slice_ids, slice_gate, slice_gate_plain, slice_scatter,
+    slice_scatter_plain)
 from tpu_pruner_torch.policy.sharded import run_local, run_stream_local
 
 CHIPS, SAMPLES, SLICES = 131072, 360, 8192
@@ -193,7 +209,10 @@ KERNEL_SYMBOLS = {"chip_pass, warp design": "chip_pass_kernel",
                   "chip_pass_q": "chip_pass_q_kernel",
                   f"chip_pass_q, row design, T={WINDOW_CHUNKS}":
                   f"chip_pass_q_rows_kernelILi{WINDOW_CHUNKS}E",
-                  "slice_gate, int32 bounds": "slice_gate_kernelIiE"}
+                  "slice_gate, int32 bounds": "slice_gate_kernelIiE",
+                  "slice_scatter marks, int32 ids": "slice_marks_kernelIiE",
+                  "slice_scatter marks, int64 ids": "slice_marks_kernelIlE",
+                  "slice_scatter verdicts": "slice_verdict_kernel"}
 # templated kernels: name -> (symbol pattern, the instantiations the plan uses)
 INSTANTIATIONS = {
     "chip_pass_q, row design, T": (r"chip_pass_q_rows_kernelILi(\d+)E", _Q_ROWS_T),
@@ -655,6 +674,150 @@ def phase_gate(dev) -> int:
     return err
 
 
+# The gke-65k-nodes-mixed deployment's JobSet groups ([count, chips] pairs):
+# 260,000 chips on 65,000 4-chip hosts in 23,149 groups, one of 50,944; and
+# the same sizes with the counts cut, as tests/test_torch_groups.py's CUT.
+GKE_GROUPS = ((1, 50944), (4, 8960), (64, 256), (256, 64), (4096, 16), (18728, 4))
+GKE_CUT = ((1, 50944), (1, 8960), (1, 256), (1, 64), (4, 16), (8, 4))
+CHIPS_PER_HOST = 4
+
+
+def with_kinds(rng, group_of_chip: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """Candidate bytes (bool[C]) for chips of the given groups: half the
+    groups idle, a quarter busy (every chip), a quarter idle but one chip
+    anywhere in the group, the largest group always so."""
+    kinds = rng.permutation(np.arange(sizes.size) % 4)  # 0, 1 idle; 2 busy; 3 one busy chip
+    kinds[np.argmax(sizes)] = 3
+    cand = (kinds != 2)[group_of_chip]
+    order = np.argsort(group_of_chip, kind="stable")
+    start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    veto = np.flatnonzero((kinds == 3) & (sizes > 0))
+    cand[order[start[veto] + rng.integers(0, sizes[veto])]] = False
+    return cand
+
+
+def host_order_fleet(rng, table) -> tuple:
+    """Candidate bytes (bool[C]) and int32 group ids of JobSet groups of the
+    table's sizes in host order, as the eval-260k-t360-f32-groups cell lays
+    them out: a host's CHIPS_PER_HOST chips adjacent, the hosts shuffled over
+    the fleet, the group ids permuted; candidates as with_kinds draws them."""
+    sizes = np.array([chips for count, chips in table for _ in range(count)])
+    hosts = np.repeat(np.arange(sizes.size), sizes // CHIPS_PER_HOST)
+    rng.shuffle(hosts)
+    group_of_chip = np.repeat(hosts, CHIPS_PER_HOST)
+    ids = rng.permutation(sizes.size)[group_of_chip].astype(np.int32)
+    return with_kinds(rng, group_of_chip, sizes), ids
+
+
+def shuffled_fleet(rng, num_chips: int, num_slices: int) -> tuple:
+    """Candidate bytes and int32 ids of num_slices equal slices whose chips
+    are shuffled over the fleet, chip by chip."""
+    group_of_chip = rng.permutation(np.repeat(np.arange(num_slices), num_chips // num_slices))
+    sizes = np.full(num_slices, num_chips // num_slices)
+    return with_kinds(rng, group_of_chip, sizes), group_of_chip.astype(np.int32)
+
+
+def scatter_cases(seed: int, large: bool = False) -> dict:
+    """name -> (candidate bool[C], ids [C], S) as numpy: the scatter slice
+    reduction's inputs. Ids outside [0, S) in int32 and int64; int64 ids at
+    and past 2^31 and 2^32 and the int64 extremes, which must count nowhere;
+    empty slices; one slice of all chips, idle or with one busy chip at its
+    first, middle or last chip; 1-chip slices in order and shuffled; sorted
+    16-chip slices; runs of one id across warp edges; the cut gke-65k layout
+    in host order; S = 0, S = 1 and C = 0. With large, also the cell's layout
+    (260,000 chips in 23,149 groups), 1,048,576 chips in 65,536 shuffled
+    slices, one slice of 1,048,576 chips and 1,048,576 one-chip slices."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    cand = rng.uniform(size=1003) < 0.97
+    for dtype in (np.int32, np.int64):
+        name = np.dtype(dtype).name
+        cases[f"ids outside [0, S), {name}"] = (cand, rng.integers(-5, 69, 1003).astype(dtype), 64)
+        cases[f"empty slices, {name}"] = (cand, rng.integers(0, 40, 1003).astype(dtype), 100)
+        cases[f"1-chip slices, {name}"] = (cand, np.arange(1003, dtype=dtype), 1003)
+        cases[f"1-chip slices shuffled, {name}"] = (cand, rng.permutation(1003).astype(dtype),
+                                                    1003)
+    # busy chips whose ids, cut to 32 bits, would veto slices 0 and 3; alone,
+    # idle chips whose ids would make slices 0 and 3 idle
+    far = np.array([2**31, 2**31 + 3, 2**32, 2**32 + 3, -2**32 + 3, 2**63 - 1, -2**63, -1, 8])
+    wide = rng.permutation(np.concatenate([far, rng.integers(0, 8, 1003 - far.size)]))
+    cases["int64 ids past 2^31 and 2^32"] = (
+        (wide >= 0) & (wide < 8), wide.astype(np.int64), 8)
+    cases["int64 ids past 2^32 alone"] = (np.ones(far.size, bool), far.astype(np.int64), 8)
+    for C in (1, 1003, 70001):
+        ids = np.zeros(C, np.int32)
+        cases[f"one slice of {C} chips, idle"] = (np.ones(C, bool), ids, 1)
+        for where, at in (("first", 0), ("middle", C // 2), ("last", C - 1)):
+            one = np.ones(C, bool)
+            one[at] = False
+            cases[f"one slice of {C} chips, busy at its {where} chip"] = (one, ids, 1)
+    sorted16 = np.repeat(np.arange(256, dtype=np.int32), 16)
+    cases["4,096 chips in 256 sorted slices"] = (
+        with_kinds(rng, sorted16, np.full(256, 16)), sorted16, 256)
+    runs = np.repeat(rng.permutation(300), rng.integers(1, 100, 300)).astype(np.int32)
+    cases["runs of 1-99 chips across warp edges"] = (rng.uniform(size=runs.size) < 0.97,
+                                                     runs, 300)
+    cases["cut gke-65k layout in host order"] = (*host_order_fleet(rng, GKE_CUT),
+                                                 sum(n for n, _ in GKE_CUT))
+    cases["S = 0"] = (cand, rng.integers(-2, 3, 1003).astype(np.int32), 0)
+    around = rng.integers(-1, 2, 1003).astype(np.int32)
+    cases["S = 1"] = (around == 0, around, 1)  # idle: the busy chips' ids lie outside
+    cases["C = 0"] = (np.ones(0, bool), np.zeros(0, np.int32), 5)
+    if large:
+        cases.update(scatter_fleets(rng))
+    return cases
+
+
+def scatter_fleets(rng) -> dict:
+    """name -> (candidate, int32 ids, S) as numpy: the shapes phase 4 times
+    the scatter reduction at. The cell's layout; 1,048,576 chips in 65,536
+    shuffled 16-chip slices; one slice of 1,048,576 chips, all idle but one;
+    1,048,576 one-chip slices, every other busy."""
+    one = np.ones(XL_CHIPS, bool)
+    one[XL_CHIPS // 3] = False
+    return {
+        f"{sum(n * c for n, c in GKE_GROUPS)} chips in {sum(n for n, _ in GKE_GROUPS)} "
+        "groups, host order": (*host_order_fleet(rng, GKE_GROUPS),
+                               sum(n for n, _ in GKE_GROUPS)),
+        f"{XL_CHIPS} chips in {XL_SLICES} shuffled slices": (
+            *shuffled_fleet(rng, XL_CHIPS, XL_SLICES), XL_SLICES),
+        f"one slice of {XL_CHIPS} chips, idle but one": (one, np.zeros(XL_CHIPS, np.int32), 1),
+        f"{XL_CHIPS} one-chip slices": (np.arange(XL_CHIPS) % 2 == 0,
+                                        np.arange(XL_CHIPS, dtype=np.int32), XL_CHIPS),
+    }
+
+
+def phase_scatter(dev) -> int:
+    """The scatter reduction on scatter_cases, the candidate at each of
+    GATE_OFFSETS: bit-equal to its plain version on the card and on the CPU,
+    one launch a case and none where S = 0 or C = 0."""
+    t0 = time.perf_counter()
+    err, launches = 0, 0
+    cases = scatter_cases(2468, large=True)
+    for name, (cand_np, ids_np, S) in cases.items():
+        ids_cpu = torch.from_numpy(ids_np)
+        ids = ids_cpu.to(dev)
+        want_cpu = slice_scatter_plain(torch.from_numpy(cand_np), ids_cpu, S)
+        for k in GATE_OFFSETS:
+            cand = gate_on(dev, cand_np, k)
+            want = slice_scatter_plain(cand, ids, S)
+            check(torch.equal(want.cpu(), want_cpu), f"scatter {name}: the plain version "
+                  "differs between the card and the CPU")
+            before = LAUNCHES["slice_scatter"]
+            got = slice_scatter(cand, ids, S)
+            check(LAUNCHES["slice_scatter"] - before == int(S > 0 and cand_np.size > 0),
+                  f"scatter {name}, offset {k}: {LAUNCHES['slice_scatter'] - before} launches")
+            launches += LAUNCHES["slice_scatter"] - before
+            check(torch.equal(got, want), f"slice_scatter != plain for {name}, offset {k}: "
+                  f"{int((got != want).sum())} slices differ")
+            err = max(err, mask_err(got, want))
+    torch.cuda.synchronize()
+    log(f"phase 2: slice_scatter equals its plain version bit for bit on {len(cases)} "
+        f"id cases x {len(GATE_OFFSETS)} candidate offsets ({launches} launches), "
+        f"{time.perf_counter() - t0:.3f} s")
+    return err
+
+
 INPUT_SLICES = 64
 
 
@@ -718,9 +881,10 @@ def input_cases(seed: int, C: int = 1003, T: int = 31) -> dict:
 
 def engine_input_check(dev, name: str, make) -> int:
     """One input case through the f32 and int8 engine paths on the card: one
-    launch of each kernel, the same verdicts and candidates as the CPU's
-    plain versions on the same inputs, and each kernel equal to its plain
-    version on the card. Returns the largest mask difference (0)."""
+    launch of each kernel and of the scatter reduction, the same verdicts
+    and candidates as the CPU's plain versions on the same inputs, and each
+    kernel equal to its plain version on the card. Returns the largest mask
+    difference (0)."""
     gpu, cpu = make(dev), make("cpu")
     err = 0
     for kind, evaluate, evaluate_cuda in (("chip_pass", evaluate_fleet, evaluate_fleet_cuda),
@@ -734,12 +898,14 @@ def engine_input_check(dev, name: str, make) -> int:
             g_in, c_in = quantize_fleet_inputs(gpu), quantize_fleet_inputs(cpu)
             g_pass = normalize_inputs_q(*g_in[:3], g_in[4])
             kernel, plain = chip_pass_q(*g_pass), chip_pass_q_plain(*g_pass)
-        before = LAUNCHES[kind]
+        before = dict(LAUNCHES)
         v, c = evaluate(*g_in, num_slices=INPUT_SLICES)
         vc, cc = evaluate_cuda(*g_in, num_slices=INPUT_SLICES)
         torch.cuda.synchronize()
-        check(LAUNCHES[kind] == before + 2, f"{name}: {kind} launched "
-              f"{LAUNCHES[kind] - before} times for two evaluations")
+        for counted_kind in (kind, "slice_scatter"):
+            check(LAUNCHES[counted_kind] == before[counted_kind] + 2,
+                  f"{name}: {counted_kind} launched "
+                  f"{LAUNCHES[counted_kind] - before[counted_kind]} times for two evaluations")
         want_v, want_c = evaluate(*c_in, num_slices=INPUT_SLICES)
         check(torch.equal(v.cpu(), want_v) and torch.equal(c.cpu(), want_c)
               and torch.equal(vc, v) and torch.equal(cc, c),
@@ -794,7 +960,8 @@ def q_input_cases(seed: int, T: int = 31) -> dict:
 
 def q_input_check(dev, name: str, make) -> int:
     """One q-sample case through evaluate_fleet_q, _qc, _qu and the CUDA
-    entry points on the card: one launch of the int8 kernel a path, the CPU's
+    entry points on the card: one launch of the int8 kernel a path, and of
+    the slice gate or the scatter reduction where the path reduces, the CPU's
     verdicts and candidates, and the kernel equal to its plain version on the
     mapped samples. Returns the largest mask difference (0)."""
     gpu, cpu = make(dev), make("cpu")
@@ -815,24 +982,23 @@ def q_input_check(dev, name: str, make) -> int:
     def qu(x):
         return evaluate_fleet_qu(x[0], x[1], x[2], x[4], Q_CHIPS // INPUT_SLICES)
 
-    runs = {  # path: (run on the card, run on the CPU, slice_gate launches)
-        "evaluate_fleet_q": (q, q, 0),
+    runs = {  # path: (run on the card, run on the CPU, slice_gate and slice_scatter launches)
+        "evaluate_fleet_q": (q, q, 0, 1),
         "evaluate_fleet_cuda_q": (lambda x: evaluate_fleet_cuda_q(*x, num_slices=INPUT_SLICES),
-                                  q, 0),
-        "evaluate_fleet_qc": (qc, qc, 1),
+                                  q, 0, 1),
+        "evaluate_fleet_qc": (qc, qc, 1, 0),
         "evaluate_fleet_cuda_qc": (lambda x: evaluate_fleet_cuda_qc(
-            x[0], x[1], x[2], bounds(x), x[4]), qc, 1),
-        "evaluate_fleet_qu": (qu, qu, 0),
+            x[0], x[1], x[2], bounds(x), x[4]), qc, 1, 0),
+        "evaluate_fleet_qu": (qu, qu, 0, 0),
     }
-    for path, (run, on_cpu, gates) in runs.items():
+    for path, (run, on_cpu, gates, scatters) in runs.items():
         before = dict(LAUNCHES)
         v, c = run(gpu)
         torch.cuda.synchronize()
-        check(LAUNCHES["chip_pass_q"] == before["chip_pass_q"] + 1
-              and LAUNCHES["slice_gate"] == before["slice_gate"] + gates,
-              f"{name}: {path} launched chip_pass_q "
-              f"{LAUNCHES['chip_pass_q'] - before['chip_pass_q']} times and slice_gate "
-              f"{LAUNCHES['slice_gate'] - before['slice_gate']}, expected 1 and {gates}")
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        want = {**dict.fromkeys(LAUNCHES, 0), "chip_pass_q": 1, "slice_gate": gates,
+                "slice_scatter": scatters}
+        check(launched == want, f"{name}: {path} launched {launched}, expected {want}")
         want_v, want_c = on_cpu(cpu)
         check(torch.equal(v.cpu(), want_v) and torch.equal(c.cpu(), want_c)
               and torch.equal(c, kernel),
@@ -888,12 +1054,15 @@ def phase_engine_inputs(dev) -> int:
     q = quantize_fleet_inputs(probe)
     q_pass = normalize_inputs_q(*q[:3], q[4])
     probe_bounds = slice_bounds(probe[4], INPUT_SLICES, device=dev)
+    probe_ids = normalize_slice_ids(probe[4])
     before = dict(LAUNCHES)
     candidate = chip_pass(*f32_pass)
     check(torch.equal(candidate, chip_pass_plain(*f32_pass))
           and torch.equal(chip_pass_q(*q_pass), chip_pass_q_plain(*q_pass))
           and torch.equal(slice_gate(candidate, probe_bounds),
-                          slice_gate_plain(candidate, probe_bounds)),
+                          slice_gate_plain(candidate, probe_bounds))
+          and torch.equal(slice_scatter(candidate, probe_ids, INPUT_SLICES),
+                          slice_scatter_plain(candidate, probe_ids, INPUT_SLICES)),
           "a kernel differs from its plain version after the bad bounds")
     torch.cuda.synchronize()
     check(all(LAUNCHES[k] == before[k] + 1 for k in LAUNCHES),
@@ -901,8 +1070,8 @@ def phase_engine_inputs(dev) -> int:
     log(f"phase 2: the engine on {len(cases)} input cases the wrappers refuse "
         f"({', '.join(cases)}), {len(q_cases)} q-sample cases ({', '.join(q_cases)}) "
         "and out-of-range bounds equals the CPU's plain versions, each kernel one launch "
-        "a path (the slice gate on the qc paths); every kernel launches, and equals its plain "
-        "version, after the bad bounds")
+        "a path (the slice gate on the qc paths, the scatter reduction on the others but qu); "
+        "every kernel launches, and equals its plain version, after the bad bounds")
     return err
 
 
@@ -1105,26 +1274,34 @@ def phase_main_path(dev, by_path: dict):
 
     # Each path runs with the counts zeroed just before it and read just
     # after: it must launch its own pass exactly once and the other never,
-    # and the slice gate once on the contiguous paths and never elsewhere.
+    # the slice gate once on the contiguous paths and the scatter reduction
+    # once on the scatter paths, and neither elsewhere.
+    gate, scatter = {"slice_gate": 1}, {"slice_scatter": 1}
     paths = {
-        "evaluate_fleet": ("chip_pass", 0, lambda: evaluate_fleet(
+        "evaluate_fleet": ("chip_pass", scatter, lambda: evaluate_fleet(
             *inputs, num_slices=SLICES)[0]),
-        "evaluate_fleet_c": ("chip_pass", 1, lambda: evaluate_fleet_c(
+        "evaluate_fleet_cuda": ("chip_pass", scatter, lambda: evaluate_fleet_cuda(
+            *inputs, num_slices=SLICES)[0]),
+        "evaluate_fleet_q": ("chip_pass_q", scatter, lambda: evaluate_fleet_q(
+            *q, num_slices=SLICES)[0]),
+        "evaluate_fleet_cuda_q": ("chip_pass_q", scatter, lambda: evaluate_fleet_cuda_q(
+            *q, num_slices=SLICES)[0]),
+        "evaluate_fleet_c": ("chip_pass", gate, lambda: evaluate_fleet_c(
             tc, hbm, valid, age, bounds, parr)[0]),
-        "evaluate_fleet_qc": ("chip_pass_q", 1, lambda: evaluate_fleet_qc(
+        "evaluate_fleet_qc": ("chip_pass_q", gate, lambda: evaluate_fleet_qc(
             q[0], q[1], q[2], bounds, q[4])[0]),
-        "evaluate_fleet_cuda_qc": ("chip_pass_q", 1, lambda: evaluate_fleet_cuda_qc(
+        "evaluate_fleet_cuda_qc": ("chip_pass_q", gate, lambda: evaluate_fleet_cuda_qc(
             q[0], q[1], q[2], bounds, q[4])[0]),
-        "evaluate_fleet_qu": ("chip_pass_q", 0, uniform),
-        "analyze.evaluate_loaded": ("chip_pass", 1, lambda: loaded(False)),
-        "analyze.evaluate_loaded --quantize": ("chip_pass_q", 1, lambda: loaded(True)),
+        "evaluate_fleet_qu": ("chip_pass_q", {}, uniform),
+        "analyze.evaluate_loaded": ("chip_pass", gate, lambda: loaded(False)),
+        "analyze.evaluate_loaded --quantize": ("chip_pass_q", gate, lambda: loaded(True)),
     }
     t0 = time.perf_counter()
-    for path, (kernel, gates, run) in paths.items():
+    for path, (kernel, reduction, run) in paths.items():
         v = counted(by_path, path, run)
         v = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
         check(np.array_equal(v, expected), f"{path} verdicts")
-        expect_launches(by_path, path, {kernel: 1, "slice_gate": gates})
+        expect_launches(by_path, path, {kernel: 1, **reduction})
     main_s = time.perf_counter() - t0
     analyze_cli_check(dev, by_path)
     analyze_dump_width_check(dev, by_path)
@@ -1140,6 +1317,8 @@ def phase_main_path(dev, by_path: dict):
         "chip_pass_q": mask_err(candidate, chip_pass_q_plain(q[0], q[1], q[2], q[4])),
         "slice_gate": mask_err(slice_gate(candidate, bounds),
                                slice_gate_plain(candidate, bounds)),
+        "slice_scatter": mask_err(slice_scatter(candidate, slice_id, SLICES),
+                                  slice_scatter_plain(candidate, slice_id, SLICES)),
     }
     check(not any(err.values()), f"full-width kernel mismatch {err}")
     return inputs, expected, q, err
@@ -1631,6 +1810,44 @@ def gate_fleets(dev, flush: torch.Tensor) -> dict:
     return out
 
 
+SCATTER_REPLACES = ("tpu_pruner/policy/engine.py:73 (slice_verdicts: no Pallas kernel; the two "
+                    "segment_sum XLA lowers to a scatter-add in the jitted evaluate_fleet and _q)")
+
+
+def scatter_timing(what: str, candidate, ids, num_slices: int, flush: torch.Tensor) -> dict:
+    """The scatter reduction on (candidate, ids), first held against the
+    plain version: one call (a memset and two kernels) warm and cold beside
+    the plain version, an empty kernel and the bound, which counts the
+    candidates and ids read once and the verdicts written once."""
+    C, S = candidate.numel(), num_slices
+    check(torch.equal(slice_scatter(candidate, ids, S), slice_scatter_plain(candidate, ids, S)),
+          f"slice_scatter differs from the plain version at {what}")
+    ms = time_fn(lambda: slice_scatter(candidate, ids, S))
+    ms_cold = time_fn(lambda: slice_scatter(candidate, ids, S), flush)
+    nbytes = candidate.nbytes + ids.nbytes + S
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    plain_ms = time_fn(lambda: slice_scatter_plain(candidate, ids, S))
+    plain_cold = time_fn(lambda: slice_scatter_plain(candidate, ids, S), flush)
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), 200)  # an empty kernel, timed alike
+    log(f"phase 4: {what}: slice_scatter {ms:.4f} ms warm, {ms_cold:.4f} ms cold, bound "
+        f"{bound:.5f} ms ({nbytes} bytes, {bound / ms:.3f} of it warm); plain {plain_ms:.4f} "
+        f"ms warm, {plain_cold:.4f} ms cold; an empty kernel {floor_ms:.4f} ms")
+    return {"name": "slice_scatter", "route": "cuda", "source": SOURCE,
+            "replaces": SCATTER_REPLACES, "pallas_counterpart": None, "ms": ms,
+            "ms_cold": ms_cold, "plain_ms": plain_ms, "plain_ms_cold": plain_cold,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+            "launch_floor_ms": floor_ms, "chips": C, "slices": S}
+
+
+def scatter_rows(dev, flush: torch.Tensor) -> dict:
+    """Phase 4's scatter reduction at each shape of scatter_fleets."""
+    rows = {}
+    for name, (cand, ids, S) in scatter_fleets(np.random.default_rng(8642)).items():
+        rows[name] = scatter_timing(name, torch.from_numpy(cand).to(dev),
+                                    torch.from_numpy(ids).to(dev), S, flush)
+    return rows
+
+
 def phase_dump_width(dev, flush: torch.Tensor) -> dict:
     """Phase 4 at an audit dump's width, 8 samples a chip: the f32 pass in
     each design at 32,768, 131,072 and 1,048,576 chips, warm and cold, beside
@@ -1958,6 +2175,7 @@ def main() -> int:
     phase_int8_designs(dev)
     err["chip_pass"] = max(err["chip_pass"], phase_f32_designs(dev))
     err["slice_gate"] = phase_gate(dev)
+    err["slice_scatter"] = phase_scatter(dev)
     input_err = phase_engine_inputs(dev)
     err = {name: max(e, input_err) for name, e in err.items()}
     by_path = {}
@@ -1976,6 +2194,9 @@ def main() -> int:
         n: design_sweep(dev, n, flush) for n in (DRYRUN_CHIPS, CHIPS, XL_CHIPS)}
     rows["chip_pass"]["dump"] = phase_dump_width(dev, flush)
     rows["slice_gate"]["fleets"] = gate_fleets(dev, flush)
+    scatter = scatter_rows(dev, flush)
+    rows["slice_scatter"] = {**next(iter(scatter.values())), "fleets": scatter,
+                             "max_abs_err": err["slice_scatter"]}
     stream, ring_err = phase_streaming(dev, by_path)
     phase_sharded_one_rank(dev, by_path, inputs, expected, q, stream)
     phase_dryrun(by_path)

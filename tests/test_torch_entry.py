@@ -43,7 +43,8 @@ def test_dryrun_multichip_on_cpu(tmp_path, ranks):
              "make_sharded_stream_step"}
     for s in summaries:
         assert s["world_size"] == ranks and set(s["launches"]) == paths
-        assert all(c == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
+        assert all(c == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
+                         "slice_scatter": 0}
                    for c in s["launches"].values())
         assert s["num_chips"] == 8 * ranks and s["odd_chips"] % ranks != 0
         assert s["idle_slices"] == s["num_slices"] // 2

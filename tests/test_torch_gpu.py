@@ -13,7 +13,8 @@ import torch
 from chip_smoke import (F32_LAYOUTS, F32_PARAMS, GATE_OFFSETS, INT8_LAYOUTS, INT8_PARAMS,
                         SWEEP_C, SWEEP_T, adversarial_fleet, engine_input_check,
                         f32_design_cases, f32_edge_fleet, f32_expected_design, gate_cases,
-                        gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on)
+                        gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on,
+                        launch_counts, scatter_cases, scatter_fleets)
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
 from tpu_pruner_torch.policy import kernels
@@ -21,6 +22,7 @@ from tpu_pruner_torch.policy import kernels
 PARAMS = [(2100.0, 0.05), (2100.0, float("inf")), (0.0, 1e-40), (2e-40, 0.5)]
 INPUT_CASES = input_cases(5)
 GATE_CASES = gate_cases(77)
+SCATTER_CASES = scatter_cases(78)
 
 
 @pytest.fixture
@@ -407,3 +409,95 @@ def test_slice_gate_empty_inputs(cuda):
     assert tp.LAUNCHES["slice_gate"] == 1
     assert got.tolist() == [False, True, False, True, False]
     assert torch.equal(got, kernels.slice_gate_plain(empty, bounds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_slice_scatter_matches_plain(cuda, case):
+    """The scatter reduction on chip_smoke.scatter_cases, the candidate at
+    each of GATE_OFFSETS off a 16-byte boundary: one launch (none where
+    S = 0 or C = 0), bit-equal to the plain version on the card and on the
+    CPU."""
+    cand_np, ids_np, S = SCATTER_CASES[case]
+    ids = torch.from_numpy(ids_np).to(cuda)
+    want_cpu = kernels.slice_scatter_plain(torch.from_numpy(cand_np), torch.from_numpy(ids_np), S)
+    for k in GATE_OFFSETS:
+        cand = gate_on(cuda, cand_np, k)
+        before = kernels.LAUNCHES["slice_scatter"]
+        got = kernels.slice_scatter(cand, ids, S)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["slice_scatter"] - before == int(S > 0 and cand_np.size > 0), k
+        assert torch.equal(got.cpu(), want_cpu), k
+        assert torch.equal(got, kernels.slice_scatter_plain(cand, ids, S)), k
+
+
+@pytest.mark.gpu
+def test_slice_scatter_large_fleets_match_plain(cuda):
+    """chip_smoke.scatter_fleets, with int32 and int64 ids: the cell's 260,000
+    chips in 23,149 groups in host order, 1,048,576 chips in 65,536 shuffled
+    slices, one slice of 1,048,576 chips and 1,048,576 one-chip slices."""
+    for name, (cand_np, ids_np, S) in scatter_fleets(np.random.default_rng(5)).items():
+        cand = torch.from_numpy(cand_np).to(cuda)
+        for dtype in (torch.int32, torch.int64):
+            ids = torch.from_numpy(ids_np).to(cuda, dtype)
+            assert torch.equal(kernels.slice_scatter(cand, ids, S),
+                               kernels.slice_scatter_plain(cand, ids, S)), (name, dtype)
+
+
+@pytest.mark.gpu
+def test_scatter_paths_launch_the_scatter_once(cuda):
+    """evaluate_fleet, _q, evaluate_fleet_cuda and _cuda_q each launch the
+    scatter reduction once, beside one pass and no gate, and give the
+    expected verdicts; obs.summary() counts the launches."""
+    from tpu_pruner_torch import obs
+
+    C, S = 4096, 256
+    inputs, expected = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device=cuda)
+    q = tp.quantize_fleet_inputs(inputs)
+    runs = {
+        "evaluate_fleet": ("chip_pass", lambda: tp.evaluate_fleet(*inputs, num_slices=S)),
+        "evaluate_fleet_cuda": ("chip_pass", lambda: tp.evaluate_fleet_cuda(*inputs,
+                                                                           num_slices=S)),
+        "evaluate_fleet_q": ("chip_pass_q", lambda: tp.evaluate_fleet_q(*q, num_slices=S)),
+        "evaluate_fleet_cuda_q": ("chip_pass_q", lambda: tp.evaluate_fleet_cuda_q(
+            *q, num_slices=S)),
+    }
+    for name, (kind, run) in runs.items():
+        tp.reset_launches()
+        v, _ = run()
+        torch.cuda.synchronize()
+        assert tp.LAUNCHES == {**dict.fromkeys(tp.LAUNCHES, 0), kind: 1,
+                               "slice_scatter": 1}, name
+        np.testing.assert_array_equal(v.cpu().numpy(), expected, err_msg=name)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with obs.span("scatter"):
+            tp.evaluate_fleet(*inputs, num_slices=S)
+    assert obs.summary()["counters"]["launches.slice_scatter"] == 1
+
+
+@pytest.mark.gpu
+def test_evaluate_fleet_puts_at_most_six_operations_on_the_card(cuda):
+    """One evaluate_fleet call on the cut gke-65k layout at T = 360, with its
+    two readbacks: the pass, the scatter reduction's memset and two kernels,
+    two copies; no index_add_ and no eager reduction kernel."""
+    cand, ids_np, S = SCATTER_CASES["cut gke-65k layout in host order"]
+    C, T = cand.size, 360
+    tc = torch.from_numpy(~cand).to(cuda, torch.float32)[:, None].expand(C, T).contiguous()
+    args = (tc, torch.zeros_like(tc), torch.ones((C, T), dtype=torch.bool, device=cuda),
+            torch.full((C,), 7200.0, device=cuda), torch.from_numpy(ids_np).to(cuda),
+            tp.params_array(tp.PolicyParams(), device=cuda))
+
+    def call():
+        verdicts, candidates = tp.evaluate_fleet(*args, num_slices=S)
+        return verdicts.cpu(), candidates.cpu()
+
+    verdicts, candidates = call()
+    assert torch.equal(candidates, torch.from_numpy(cand))
+    assert torch.equal(verdicts, kernels.slice_scatter_plain(candidates,
+                                                             torch.from_numpy(ids_np), S))
+    ops = launch_counts("evaluate_fleet, cut gke-65k layout", call)
+    assert ops is not None and ops["total"] <= 6, ops
+    names = " ".join(ops["by_name"])
+    assert "slice_marks_kernel" in names and "slice_verdict_kernel" in names, names
+    assert "index" not in names and "elementwise" not in names, names
+

@@ -30,7 +30,7 @@ from port_bench.reference import groups as ref
 from port_bench.trace import Spans, Trace
 from tpu_pruner_torch import obs
 from tpu_pruner_torch import policy as tp
-from tpu_pruner_torch.policy import engine
+from tpu_pruner_torch.policy import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
 CELL = "eval-260k-t360-f32-groups"
@@ -269,7 +269,7 @@ def seed_showing_a_dropped_last_chip(tree):
 
 
 @pytest.mark.parametrize("module, attr, fault", [
-    (engine, "slice_counts", drop_last_chip), (tp, "evaluate_fleet", flip_one_verdict)],
+    (kernels, "slice_counts", drop_last_chip), (tp, "evaluate_fleet", flip_one_verdict)],
     ids=["slice_counts-drops-the-last-chip", "evaluate_fleet-flips-a-verdict"])
 def test_broken_program_is_not_correct(tree, monkeypatch, module, attr, fault):
     seed = seed_showing_a_dropped_last_chip(tree) if attr == "slice_counts" else SEED

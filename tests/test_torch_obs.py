@@ -221,7 +221,7 @@ def test_summary_reports_counter_growth_and_the_kernels_launches():
     assert counters["h2d_bytes"] == 1024 * 6 * 9 + 1024 * 8 + 8
     assert counters["launches.slice_gate"] == 2
     assert counters["d2h_bytes"] == counters["host_syncs"] == 0
-    assert {"launches.chip_pass", "design_launches.rows",
+    assert {"launches.chip_pass", "launches.slice_scatter", "design_launches.rows",
             "f32_design_launches.long"} <= set(counters)
 
 

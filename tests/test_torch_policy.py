@@ -17,7 +17,7 @@ import torch
 
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner.policy import pallas_engine as jpal
-from chip_smoke import F32_PARAMS, GATE_OFFSETS, f32_edge_fleet, gate_cases
+from chip_smoke import F32_PARAMS, GATE_OFFSETS, f32_edge_fleet, gate_cases, scatter_cases
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.policy import kernels
 
@@ -365,7 +365,8 @@ def test_chip_pass_wrappers_validate_inputs():
     got = tp.chip_pass(t_tc, t_hbm, t_valid, t_age, params)
     np.testing.assert_array_equal(
         got.numpy(), tp.chip_pass_plain(t_tc, t_hbm, t_valid, t_age, params).numpy())
-    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}  # no kernel on the CPU
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
+                           "slice_scatter": 0}  # no kernel on the CPU
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():
@@ -613,7 +614,8 @@ def test_chip_pass_q_empty_fleet_launches_nothing():
     empty = torch.empty((0, 12), dtype=torch.int8)
     out = tp.chip_pass_q(empty, empty, torch.empty(0), torch.tensor([2100.0, 1.0]))
     assert out.shape == (0,) and out.dtype == torch.bool
-    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
+                           "slice_scatter": 0}
     assert kernels.DESIGN_LAUNCHES == {"rows": 0, "tiles": 0}
 
 
@@ -896,7 +898,8 @@ def test_chip_pass_empty_fleet_launches_nothing():
     empty = torch.empty((0, 8))
     out = tp.chip_pass(empty, empty, empty.bool(), torch.empty(0), torch.tensor([2100.0, 1.0]))
     assert out.shape == (0,) and out.dtype == torch.bool
-    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
+                           "slice_scatter": 0}
     assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0, "warps": 0}
     long_empty = torch.empty((0, 360))
     out = tp.chip_pass(long_empty, long_empty, long_empty.bool(), torch.empty(0),
@@ -1208,4 +1211,114 @@ def test_slice_gate_wrapper_validates_inputs():
         assert torch.equal(got, kernels.slice_gate_plain(cand, bounds.to(dtype)))
         assert got.tolist() == [True, False, True]
     assert kernels.slice_gate(cand, bounds[:1]).shape == (0,)  # S = 0
-    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
+                           "slice_scatter": 0}
+
+
+# --- the scatter slice reduction (tp_slice_scatter) ---------------------------
+
+SCATTER_CASES = scatter_cases(2024)
+
+
+def emulate_slice_scatter(cand, ids, num_slices: int):
+    """numpy replay of tp_slice_scatter: the marks kernel warp by warp (a
+    chip's mark is 2 s for a candidate, 2 s + 1 for a busy chip, none for an
+    id outside [0, S), compared in int64; a lane stores its mark unless the
+    lane before holds the same one), then the verdict kernel's
+    little-endian read of each slice's two marks as one 16-bit word.
+    Returns (verdicts, the stores the marks kernel makes)."""
+    ids = ids.astype(np.int64)
+    keep = (ids >= 0) & (ids < num_slices)
+    m = np.full(ids.size, -1, np.int64)
+    m[keep] = 2 * ids[keep] + (~cand[keep]).astype(np.int64)
+    lanes = np.concatenate([m, np.full(-m.size % 32, -1)]).reshape(-1, 32)
+    before = np.concatenate([np.full((lanes.shape[0], 1), -1), lanes[:, :-1]], axis=1)
+    store = (lanes >= 0) & ((np.arange(32) == 0) | (before != lanes))
+    marks = np.zeros(2 * num_slices, np.uint8)
+    marks[lanes[store]] = 1
+    return marks.view("<u2") == 1, int(store.sum())
+
+
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_slice_scatter_replay_matches_plain_and_reference(case):
+    """The kernel's marks and verdict rule, replayed, give the plain
+    version's verdicts (the index_add_ counts of slice_counts), and where the
+    ids are int32 the JAX reference's slice_verdicts."""
+    cand, ids, S = SCATTER_CASES[case]
+    got, _ = emulate_slice_scatter(cand, ids, S)
+    want = kernels.slice_scatter(torch.from_numpy(cand), torch.from_numpy(ids), S)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert torch.equal(want, kernels.slice_scatter_plain(torch.from_numpy(cand),
+                                                         torch.from_numpy(ids), S))
+    if ids.dtype == np.int32 and S:
+        ref = jeng.slice_verdicts(jnp.asarray(cand), jnp.asarray(ids), S)
+        np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 70001])
+def test_slice_scatter_replay_stores_once_a_warp_on_one_slice(C):
+    """All chips in one slice, every one a candidate: the marks kernel
+    stores once a warp, never once a chip (the skew that index_add_ paid
+    for with an atomic a chip)."""
+    got, stores = emulate_slice_scatter(np.ones(C, bool), np.zeros(C, np.int32), 1)
+    assert got.tolist() == [True] and stores == -(-C // 32)
+
+
+def test_slice_scatter_replay_stores_once_a_host_in_host_order():
+    """In the cut gke-65k layout a host's four chips share a mark unless one
+    is busy, so the kernel stores at most once a host plus once for each
+    busy chip and each warp edge."""
+    cand, ids, S = SCATTER_CASES["cut gke-65k layout in host order"]
+    _, stores = emulate_slice_scatter(cand, ids, S)
+    assert stores <= ids.size // 4 + 2 * int((~cand).sum())
+
+
+def test_slice_scatter_wrapper_validates_inputs():
+    """slice_scatter takes bool candidates and int32 or int64 ids, 1-D,
+    contiguous, of one length and on one device, and S >= 0; it refuses the
+    rest before any launch. On the CPU it is its plain version and counts
+    no launch."""
+    cand = torch.tensor([True, False, True, True])
+    ids = torch.tensor([0, 1, 1, 2], dtype=torch.int32)
+    for dtype in (torch.bool, torch.float32, torch.float64, torch.int16, torch.uint8):
+        with pytest.raises(TypeError, match="slice ids"):
+            kernels.slice_scatter(cand, ids.to(dtype), 3)
+    with pytest.raises(TypeError, match="candidate"):
+        kernels.slice_scatter(cand.to(torch.uint8), ids, 3)
+    with pytest.raises(ValueError, match="1-D"):
+        kernels.slice_scatter(cand.view(2, 2), ids.view(2, 2), 3)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.slice_scatter(cand, ids[:3], 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.slice_scatter(cand, torch.arange(8, dtype=torch.int32)[::2], 3)
+    with pytest.raises(ValueError, match="is on meta"):
+        kernels.slice_scatter(cand, ids.to("meta"), 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.slice_scatter(cand.to("meta"), ids.to("meta"), 3)
+    with pytest.raises(ValueError, match="num_slices"):
+        kernels.slice_scatter(cand, ids, -1)
+    tp.reset_launches()
+    for dtype in (torch.int32, torch.int64):
+        got = kernels.slice_scatter(cand, ids.to(dtype), 4)
+        assert torch.equal(got, kernels.slice_scatter_plain(cand, ids.to(dtype), 4))
+        assert got.tolist() == [True, False, True, False]  # slice 3 holds no chip
+    assert kernels.slice_scatter(cand, ids, 0).shape == (0,)  # S = 0
+    assert kernels.slice_scatter(cand[:0], ids[:0], 2).tolist() == [False, False]  # C = 0
+    assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
+                           "slice_scatter": 0}
+
+
+def test_slice_verdicts_go_through_the_scatter_wrapper():
+    """engine.slice_verdicts widens narrow ids, makes its inputs contiguous
+    and hands them to kernels.slice_scatter, whose plain version is the
+    index_add_ counts of slice_counts, which the sharded paths keep."""
+    cand = torch.tensor([True, False, True, True, True, True])
+    ids = torch.tensor([0, 9, 1, 1, 1, 2, 2, 2, 2, -1, 3, 4], dtype=torch.int8)[::2]
+    got = tp.slice_verdicts(cand, ids, 4)
+    busy, chips = tp.engine.slice_counts(cand, ids, 4)
+    assert got.tolist() == ((busy == 0) & (chips > 0)).tolist() == [True, False, True, True]
+    assert tp.engine.slice_counts is kernels.slice_counts
+    assert tp.engine.normalize_slice_ids is kernels.normalize_slice_ids
+    from tpu_pruner_torch.policy import sharded
+    assert sharded.slice_counts is kernels.slice_counts
+

@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``policy/csrc/chip_pass.cu`` (both chip passes and the slice gate) becomes ``build/torch_kernels/libchip_pass.so``
-at the repository root, compiled by ``nvcc`` for Hopper (``sm_90a``) with a
-plain C interface. That builds in seconds, where an extension that includes
-PyTorch's headers takes minutes. The library is rebuilt when any source in
-``csrc/`` is newer than it.
+``policy/csrc/chip_pass.cu`` (both chip passes and both slice reductions)
+becomes ``build/torch_kernels/libchip_pass.so`` at the repository root,
+compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain C interface. That
+builds in seconds, where an extension that includes PyTorch's headers takes
+minutes. The library is rebuilt when any source in ``csrc/`` is newer than
+it.
 
 No ``-use_fast_math`` and no ``-ftz=true``: the kernels flush subnormals
 explicitly where the reference does, and must not flush anywhere else.
@@ -43,6 +44,8 @@ SIGNATURES = {
     # candidate, bounds, out, num_chips, num_slices, bound_bytes, wrap_bits,
     # wrap_signed, the stream
     "tp_slice_gate": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
+    # candidate, ids, marks, out, num_chips, num_slices, id_bytes, the stream
+    "tp_slice_scatter": (_P, _P, _P, _P, _I64, _I64, _I, _P),
 }
 SOURCE = CSRC / "chip_pass.cu"
 LIBRARY = BUILD_DIR / "libchip_pass.so"

@@ -7,9 +7,10 @@
 //                   (pallas_engine.py:104; int8 1%-bucket samples, -1 = invalid
 //                   in-band).
 //
-// And the contiguous slice gate, tp_slice_gate (at the end of this file),
-// which reduces the pass's chip verdicts to slice verdicts; it has no Pallas
-// counterpart.
+// And the two slice reductions at the end of this file, which reduce the
+// pass's chip verdicts to slice verdicts and have no Pallas counterpart: the
+// contiguous slice gate, tp_slice_gate, for chips in slice order, and the
+// scatter reduction, tp_slice_scatter, for chips in any order.
 //
 // Both read every sample byte once and write one byte per chip: they are
 // bound by device-memory bandwidth and do no tensor-core work. At the fleet
@@ -1128,6 +1129,70 @@ void launch_gate(const uint8_t* cand, const void* bounds, uint8_t* out, int64_t 
         wrap_bits, wrap_signed);
 }
 
+// ── the scatter slice reduction: chip verdicts in any order -> slice verdicts
+//
+// tp_slice_scatter has no Pallas counterpart. It is the reduction of the
+// reference's slice_verdicts (tpu_pruner/policy/engine.py:73-86, two
+// segment_sum over the slice ids), which the port ran as two index_add_ and
+// 13 more eager operations (kernels.slice_counts). It reads the candidate
+// bytes (bool[C], nonzero = candidate) and the ids ([C], int32 or int64, in
+// any order) and writes bool[S], with the semantics of
+// kernels.slice_scatter_plain: an id outside [0, S) counts nowhere (an int64
+// id is compared as it is, never cut to 32 bits); slice s is idle iff some
+// chip has id s and none of them is busy, so a slice with no chip is never
+// idle.
+//
+// A verdict needs two facts a slice and no count, so the kernel keeps two
+// marks a slice in a scratch buffer that the entry point zeroes first
+// (marks[2 s] "a candidate chip of s", marks[2 s + 1] "a busy chip of s"),
+// and each chip sets one mark to 1: the writes are idempotent, so no atomic
+// is needed and the result does not depend on their order. Counting put
+// every chip of a slice on one word: at 260,000 chips in host order, the
+// 50,944 chips of one Multislice group were 2 x 50,944 atomics on one
+// address, serialised in L2. Here a lane skips a mark that the lane before
+// it holds (a host's chips are adjacent, a sorted fleet's slices lie along
+// warps), and a warp's stores to one address merge into one, so that group
+// costs about one store a warp. Reading a mark before writing it, and one
+// leader a distinct mark by __match_any_sync, both measured slower on the
+// H100 at that layout: the read is a second dependent round trip, and the
+// match costs more than the stores it saves (PERF.md §6). A second kernel
+// then writes verdict s = (marks[2 s], marks[2 s + 1]) == (1, 0). That is
+// three device operations a call (the memset, the marks, the verdicts),
+// each bound by its launch and a memory round trip, not by bandwidth: the
+// inputs are 5 C bytes (1.3 MB at 260,000 chips).
+
+constexpr int kScatterThreads = 256;
+
+template <typename I>
+__global__ void __launch_bounds__(kScatterThreads)
+slice_marks_kernel(const uint8_t* __restrict__ cand, const I* __restrict__ ids,
+                   uint8_t* __restrict__ marks, int64_t num_chips, int64_t num_slices) {
+    const int64_t c = int64_t(blockIdx.x) * kScatterThreads + threadIdx.x;
+    long long m = -1;  // this chip's mark, -1 for none
+    if (c < num_chips) {
+        const int64_t s = int64_t(ids[c]);
+        if (s >= 0 && s < num_slices) m = 2 * s + (cand[c] ? 0 : 1);
+    }
+    const long long before = __shfl_up_sync(kFullMask, m, 1);
+    if (m >= 0 && ((threadIdx.x & 31) == 0 || before != m)) marks[m] = 1;
+}
+
+__global__ void __launch_bounds__(kScatterThreads)
+slice_verdict_kernel(const uint16_t* __restrict__ marks, uint8_t* __restrict__ out,
+                     int64_t num_slices) {
+    const int64_t s = int64_t(blockIdx.x) * kScatterThreads + threadIdx.x;
+    if (s < num_slices) out[s] = marks[s] == 1u;  // little-endian: the candidate mark alone
+}
+
+int64_t scatter_blocks(int64_t n) { return (n + kScatterThreads - 1) / kScatterThreads; }
+
+template <typename I>
+void launch_marks(const uint8_t* cand, const void* ids, uint8_t* marks, int64_t num_chips,
+                  int64_t num_slices, cudaStream_t stream) {
+    slice_marks_kernel<I><<<unsigned(scatter_blocks(num_chips)), kScatterThreads, 0, stream>>>(
+        cand, static_cast<const I*>(ids), marks, num_chips, num_slices);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1222,6 +1287,28 @@ int tp_slice_gate(const void* candidate, const void* bounds, void* out, int64_t 
         launch_gate<int32_t>(c, bounds, o, num_chips, num_slices, wrap_bits, wrap_signed, s);
     else
         launch_gate<int64_t>(c, bounds, o, num_chips, num_slices, wrap_bits, wrap_signed, s);
+    return int(cudaGetLastError());
+}
+
+// The scatter slice reduction; id_bytes is 4 (int32 ids) or 8 (int64), marks
+// a scratch buffer of 2 num_slices bytes, which this zeroes first. Takes
+// C >= 1 and S >= 1 (the wrapper launches nothing otherwise).
+int tp_slice_scatter(const void* candidate, const void* ids, void* marks, void* out,
+                     int64_t num_chips, int64_t num_slices, int id_bytes, void* stream) {
+    if (num_chips < 1 || num_slices < 1 || (id_bytes != 4 && id_bytes != 8) ||
+        scatter_blocks(num_chips) > 0x7fffffff || scatter_blocks(num_slices) > 0x7fffffff)
+        return int(cudaErrorInvalidValue);
+    const auto c = static_cast<const uint8_t*>(candidate);
+    const auto m = static_cast<uint8_t*>(marks);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const cudaError_t zeroed = cudaMemsetAsync(m, 0, size_t(2 * num_slices), s);
+    if (zeroed != cudaSuccess) return int(zeroed);
+    if (id_bytes == 4)
+        launch_marks<int32_t>(c, ids, m, num_chips, num_slices, s);
+    else
+        launch_marks<int64_t>(c, ids, m, num_chips, num_slices, s);
+    slice_verdict_kernel<<<unsigned(scatter_blocks(num_slices)), kScatterThreads, 0, s>>>(
+        reinterpret_cast<const uint16_t*>(m), static_cast<uint8_t*>(out), num_slices);
     return int(cudaGetLastError());
 }
 

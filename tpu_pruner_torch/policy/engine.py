@@ -9,13 +9,13 @@ Counterpart of tpu_pruner/policy/engine.py, single device. Data model
 - ``pod_age_s`` f32[C]: age of the owning pod;
 - ``slice_id`` i32[C]: slice membership (0..S-1).
 
-The per-chip pass, and the contiguous slice gate after it, run in the
-hand-written CUDA kernels of ``kernels.py`` when the tensors lie on the
-card, and in their plain PyTorch versions when they lie on the CPU. The
-scatter and reshape slice reductions are plain PyTorch ops. Functions
-follow the device of the tensors they are given; functions that create
-tensors take ``device=`` (default ``"cuda"``) and raise when no card is
-present, unless the caller asked for ``"cpu"``.
+The per-chip pass, and the contiguous slice gate or the scatter slice
+reduction after it, run in the hand-written CUDA kernels of ``kernels.py``
+when the tensors lie on the card, and in their plain PyTorch versions when
+they lie on the CPU. The reshape slice reduction runs as plain PyTorch ops.
+Functions follow the device of the tensors they are given; functions that
+create tensors take ``device=`` (default ``"cuda"``) and raise when no card
+is present, unless the caller asked for ``"cpu"``.
 
 The evaluators take what the reference takes: samples of any float or
 integer dtype (widened or rounded to f32 first, as JAX does with x64 off),
@@ -41,8 +41,10 @@ import numpy as np
 import torch
 
 from .. import obs
-from .kernels import _FLT_MIN, chip_pass, chip_pass_q, flush_subnormal, slice_gate
-from .kernels import slice_counts_contiguous  # noqa: F401 -- the sharded qc path's
+from .kernels import (_FLT_MIN, chip_pass, chip_pass_q, flush_subnormal, normalize_slice_ids,
+                      slice_gate, slice_scatter)
+# the sharded paths' per-rank counts
+from .kernels import slice_counts, slice_counts_contiguous  # noqa: F401
 
 
 def resolve_device(device) -> torch.device:
@@ -147,17 +149,6 @@ def normalize_inputs_q(tc_q, hbm_q, pod_age_s, params_arr_q):
     return tc_q.contiguous(), hbm_q.contiguous(), _f32(pod_age_s), params_arr_q
 
 
-def normalize_slice_ids(slice_id: torch.Tensor) -> torch.Tensor:
-    """Slice ids as index_add_ takes them: int32 and int64 ids as they are,
-    any other integer dtype widened to int64. Bool and float ids raise
-    TypeError, as the reference's segment_sum refuses them."""
-    if slice_id.dtype in (torch.int32, torch.int64):
-        return slice_id
-    if slice_id.dtype == torch.bool or slice_id.is_floating_point() or slice_id.is_complex():
-        raise TypeError(f"slice ids must be integers, got {slice_id.dtype}")
-    return slice_id.to(torch.int64)
-
-
 @obs.spanned("engine.evaluate")
 def evaluate_chips(tc_util, hbm_util, valid, pod_age_s, lookback_s, hbm_cutoff):
     """Per-chip idle-candidate mask (bool[C]).
@@ -174,29 +165,13 @@ def slice_verdicts(candidate, slice_id, num_slices: int):
     """Reduce chip candidacy to per-slice all-idle verdicts (bool[S]).
 
     One busy chip anywhere in the slice vetoes it; a slice id with no chips
-    is never idle.
+    is never idle, and an id outside [0, S) counts nowhere. On the card one
+    launch of the scatter kernel (kernels.slice_scatter), on the CPU its
+    plain version, the index_add_ counts of slice_counts. Ids of any integer
+    dtype are taken (normalize_slice_ids).
     """
-    busy, chips = slice_counts(candidate, slice_id, num_slices)
-    return (busy == 0) & (chips > 0)
-
-
-def slice_counts(candidate, slice_id, num_slices: int):
-    """Per-slice (busy chips, chips) as int32[S] each, by index_add_ scatter.
-
-    A chip whose id lies outside [0, S) counts in neither, as the
-    reference's segment_sum drops it: it is added into one extra segment
-    that is cut off, so no id is ever out of range for index_add_ (which
-    raises on the CPU and asserts on the card) and nothing syncs the host.
-    Ids of any integer dtype are taken (normalize_slice_ids).
-    """
-    slice_id = normalize_slice_ids(slice_id)
-    keep = (slice_id >= 0) & (slice_id < num_slices)
-    index = torch.where(keep, slice_id, num_slices)
-    busy = torch.zeros(num_slices + 1, dtype=torch.int32, device=candidate.device)
-    busy.index_add_(0, index, (~candidate).to(torch.int32))
-    chips = torch.zeros(num_slices + 1, dtype=torch.int32, device=candidate.device)
-    chips.index_add_(0, index, torch.ones_like(index, dtype=torch.int32))
-    return busy[:num_slices], chips[:num_slices]
+    return slice_scatter(candidate.contiguous(), normalize_slice_ids(slice_id).contiguous(),
+                         num_slices)
 
 
 @obs.spanned("engine.evaluate")

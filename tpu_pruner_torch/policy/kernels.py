@@ -21,7 +21,11 @@ each row to one verdict: a bandwidth-bound pass with no tensor-core work.
   reduction that the reference leaves to XLA inside its jitted
   ``evaluate_fleet_c`` and ``_qc``. It splits the work per slice, inside
   the kernel: a thread reads a short slice alone, and a block reads the
-  long slices of its threads together.
+  long slices of its threads together;
+- ``slice_scatter`` (chip verdicts + slice ids in any order) launches
+  ``tp_slice_scatter``, which has no Pallas counterpart either: it is the
+  reference's ``segment_sum`` reduction of ``evaluate_fleet`` and ``_q``,
+  with two idempotent marks a slice in place of two counts.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. The plain versions apply the
@@ -47,7 +51,7 @@ from . import _build
 
 _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
-LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0}
+LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0, "slice_scatter": 0}
 DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
 F32_DESIGN_LAUNCHES = {"groups": 0, "long": 0, "warps": 0}  # chip_pass's, by design
 
@@ -436,4 +440,98 @@ def _launch_gate(candidate, bounds) -> torch.Tensor:
                                    wrap_bits, int(wrap_signed), stream)
     _build.check(status, "tp_slice_gate")
     LAUNCHES["slice_gate"] += 1
+    return out
+
+
+# --- the scatter slice reduction ---------------------------------------------
+
+
+def normalize_slice_ids(slice_id: torch.Tensor) -> torch.Tensor:
+    """Slice ids as index_add_ takes them: int32 and int64 ids as they are,
+    any other integer dtype widened to int64. Bool and float ids raise
+    TypeError, as the reference's segment_sum refuses them."""
+    if slice_id.dtype in (torch.int32, torch.int64):
+        return slice_id
+    if slice_id.dtype == torch.bool or slice_id.is_floating_point() or slice_id.is_complex():
+        raise TypeError(f"slice ids must be integers, got {slice_id.dtype}")
+    return slice_id.to(torch.int64)
+
+
+def slice_counts(candidate, slice_id, num_slices: int):
+    """Per-slice (busy chips, chips) as int32[S] each, by index_add_ scatter.
+
+    A chip whose id lies outside [0, S) counts in neither, as the
+    reference's segment_sum drops it: it is added into one extra segment
+    that is cut off, so no id is ever out of range for index_add_ (which
+    raises on the CPU and asserts on the card) and nothing syncs the host.
+    Ids of any integer dtype are taken (normalize_slice_ids).
+    """
+    slice_id = normalize_slice_ids(slice_id)
+    keep = (slice_id >= 0) & (slice_id < num_slices)
+    index = torch.where(keep, slice_id, num_slices)
+    busy = torch.zeros(num_slices + 1, dtype=torch.int32, device=candidate.device)
+    busy.index_add_(0, index, (~candidate).to(torch.int32))
+    chips = torch.zeros(num_slices + 1, dtype=torch.int32, device=candidate.device)
+    chips.index_add_(0, index, torch.ones_like(index, dtype=torch.int32))
+    return busy[:num_slices], chips[:num_slices]
+
+
+def slice_scatter_plain(candidate, slice_id, num_slices: int) -> torch.Tensor:
+    """Plain PyTorch version of the scatter reduction (bool[S]): the
+    index_add_ counts of slice_counts."""
+    busy, chips = slice_counts(candidate, slice_id, num_slices)
+    return (busy == 0) & (chips > 0)
+
+
+def slice_scatter(candidate, slice_id, num_slices: int) -> torch.Tensor:
+    """Slice verdicts (bool[S]) of chips in any order: slice s is idle iff
+    some chip has id s and none of those chips is busy. An id outside
+    [0, S) counts nowhere, so a slice with no chip is never idle.
+
+    candidate: bool[C]; slice_id: int32 or int64 [C] (engine.slice_verdicts
+    widens other integer ids first). Bool, float and other ids raise
+    TypeError.
+    """
+    if candidate.dtype != torch.bool:
+        raise TypeError(f"candidate must be torch.bool, got {candidate.dtype}")
+    if slice_id.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"slice ids must be int32 or int64, got {slice_id.dtype}")
+    for name, t in (("candidate", candidate), ("slice_id", slice_id)):
+        if t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if slice_id.shape != candidate.shape:
+        raise ValueError(f"slice_id must have shape {tuple(candidate.shape)}, "
+                         f"got {tuple(slice_id.shape)}")
+    device = candidate.device
+    if slice_id.device != device:
+        raise ValueError(f"slice_id is on {slice_id.device}, expected {device}")
+    if num_slices < 0:
+        raise ValueError(f"num_slices must be >= 0, got {num_slices}")
+    if device.type == "cpu":
+        return slice_scatter_plain(candidate, slice_id, num_slices)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if not num_slices:  # a grid of no blocks is a launch error
+        return torch.empty(0, dtype=torch.bool, device=device)
+    if not candidate.shape[0]:  # no chip: no slice is idle
+        return torch.zeros(num_slices, dtype=torch.bool, device=device)
+    return _launch_scatter(candidate, slice_id, num_slices)
+
+
+def _launch_scatter(candidate, slice_id, num_slices: int) -> torch.Tensor:
+    """tp_slice_scatter on CUDA tensors that slice_scatter has checked
+    (C > 0, S > 0): a memset of its marks, then its two kernels; returns
+    the bool[S] verdicts."""
+    marks = torch.empty(2 * num_slices, dtype=torch.uint8, device=candidate.device)
+    out = torch.empty(num_slices, dtype=torch.bool, device=candidate.device)
+    lib = _build.load()
+    with torch.cuda.device(candidate.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tp_slice_scatter(candidate.data_ptr(), slice_id.data_ptr(),
+                                      marks.data_ptr(), out.data_ptr(), candidate.shape[0],
+                                      int(num_slices), slice_id.element_size(), stream)
+    _build.check(status, "tp_slice_scatter")
+    LAUNCHES["slice_scatter"] += 1
     return out
