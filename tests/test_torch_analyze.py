@@ -321,7 +321,8 @@ def test_shard_without_torchrun_runs_one_rank(tmp_path, extra):
 
 
 def test_port_imports_neither_jax_nor_reference(tmp_path):
-    """The port and chip_smoke.py load no JAX and nothing of tpu_pruner,
+    """The port, chip_smoke.py and the kernel cases it shares with the tests
+    (tests/torch_kernel_cases.py) load no JAX and nothing of tpu_pruner,
     and neither does a report mode run through the port's CLI; importing
     the CLI builds no native code."""
     ledger = tmp_path / "ledger.jsonl"
@@ -332,7 +333,8 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
          "reclaimed_chip_seconds": 2400.0, "pauses": 1, "resumes": 0}) + "\n")
     probe = (
         "import runpy, sys\n"
-        "import chip_smoke, tpu_pruner_torch, tpu_pruner_torch.analyze\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import chip_smoke, torch_kernel_cases, tpu_pruner_torch, tpu_pruner_torch.analyze\n"
         "import tpu_pruner_torch.policy, tpu_pruner_torch.policy.cuda_engine\n"
         "import tpu_pruner_torch.entry, tpu_pruner_torch.policy.sharded\n"
         "import tpu_pruner_torch.native, tpu_pruner_torch.dump\n"

@@ -1,4 +1,5 @@
-"""tpu_pruner_torch on the card: each CUDA kernel against its plain version.
+"""tpu_pruner_torch on the card: each CUDA kernel against its plain version,
+and every path of the engine at the main path's full width.
 
 Tests marked ``gpu`` skip without a CUDA device. This file imports no JAX,
 so it also runs on a machine that has only PyTorch:
@@ -6,23 +7,37 @@ so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import contextlib
+import io
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (F32_LAYOUTS, F32_PARAMS, GATE_OFFSETS, INT8_LAYOUTS, INT8_PARAMS,
-                        SWEEP_C, SWEEP_T, adversarial_fleet, engine_input_check,
-                        f32_design_cases, f32_edge_fleet, f32_expected_design, gate_cases,
-                        gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on,
-                        launch_counts, scatter_cases, scatter_fleets)
+from port_bench import dumpfile
+from torch_kernel_cases import (
+    BYTES_EDGE, CHIPS, CHUNK_SAMPLES, CPS, DRYRUN_RANKS, DUMP_SAMPLES, F32_ADVERSARIAL_T,
+    F32_LAYOUTS, F32_PARAMS, F32_SWEEP_T, GATE_OFFSETS, INT8_LAYOUTS, INT8_PARAMS, SAMPLES,
+    SLICES, STREAM_CYCLES, SWEEP_C, SWEEP_T, WINDOW_CHUNKS, XL_CHIPS, XL_SLICES, adversarial_fleet,
+    bounds_input_check, engine_input_check, f32_design_cases, f32_edge_fleet, f32_expected_design,
+    gate_cases, gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on, launch_counts,
+    q_input_cases, q_input_check, rows_taken, scatter_cases, scatter_fleets, seeded_fleet,
+    stream_chunks)
+from tpu_pruner_torch import analyze, entry
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
 from tpu_pruner_torch.policy import kernels
+from tpu_pruner_torch.policy.engine import normalize_inputs, normalize_inputs_q
 
-PARAMS = [(2100.0, 0.05), (2100.0, float("inf")), (0.0, 1e-40), (2e-40, 0.5)]
 INPUT_CASES = input_cases(5)
-GATE_CASES = gate_cases(77)
+Q_INPUT_CASES = q_input_cases(98)
+GATE_CASES = gate_cases(77, large=True)
 SCATTER_CASES = scatter_cases(78)
+# (chips, samples, slices) of the engine's paths: a small fleet, and the main
+# path's full width
+FLEETS = [pytest.param((4096, 64, 256), id="4096x64"),
+          pytest.param((CHIPS, SAMPLES, SLICES), id=f"{CHIPS}x{SAMPLES}")]
 
 
 @pytest.fixture
@@ -37,9 +52,14 @@ def adversarial_on(device, T, seed=7, C=1003):
     return [torch.from_numpy(x).to(device) for x in (tc, hbm, valid, age)]
 
 
+def q_design(C: int, T: int) -> str:
+    """The int8 pass's design for fresh, aligned [C, T] tensors."""
+    return "rows" if rows_taken(C, T) else "tiles"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("params", PARAMS)
-@pytest.mark.parametrize("T", [1, 31, 360, 361])
+@pytest.mark.parametrize("params", INT8_PARAMS)
+@pytest.mark.parametrize("T", [1, 12, 31, 360, 361])
 def test_chip_pass_matches_plain(cuda, T, params):
     tc, hbm, valid, age = adversarial_on(cuda, T)
     parr = torch.tensor(params, dtype=torch.float32, device=cuda)
@@ -51,17 +71,20 @@ def test_chip_pass_matches_plain(cuda, T, params):
     # and the card's plain version equals the CPU's
     assert torch.equal(got.cpu(), tp.chip_pass_plain(
         *(x.cpu() for x in (tc, hbm, valid, age, parr))))
+    if params == INT8_PARAMS[0] and T <= 31:  # long rows of this fleet hold no idle chip
+        assert 0 < int(got.sum()) < got.numel()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("params", PARAMS)
+@pytest.mark.parametrize("params", INT8_PARAMS)
 @pytest.mark.parametrize("T", [1, 12, 31, 360, 361, 10080])
 def test_chip_pass_q_matches_plain(cuda, T, params):
     tc, hbm, valid, age = adversarial_on(cuda, T)
     tc_q = tp.quantize_samples_device(tc, valid)
     hbm_q = tp.quantize_samples_device(hbm, valid)
-    np.testing.assert_array_equal(tc_q.cpu().numpy(),
-                                  tp.quantize_samples(tc.cpu().numpy(), valid.cpu().numpy()))
+    for x, x_q in ((tc, tc_q), (hbm, hbm_q)):
+        np.testing.assert_array_equal(x_q.cpu().numpy(),
+                                      tp.quantize_samples(x.cpu().numpy(), valid.cpu().numpy()))
     parr_q = torch.from_numpy(tp.quantize_params(np.array(params, np.float32))).to(cuda)
     before = tp.LAUNCHES["chip_pass_q"]
     got = tp.chip_pass_q(tc_q, hbm_q, age, parr_q)
@@ -95,32 +118,35 @@ def test_chip_pass_q_edges(cuda, T, C, layout):
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["contiguous", "row_offset"])
 def test_chip_pass_q_full_width(cuda, layout):
-    tc, hbm, age = int8_edge_fleet(np.random.default_rng(3), 131072, 360)
+    tc, hbm, age = int8_edge_fleet(np.random.default_rng(3), CHIPS, SAMPLES)
     assert_q_matches_plain(cuda, int8_on(cuda, tc, layout, 1), int8_on(cuda, hbm, layout, 2),
                            torch.from_numpy(age).to(cuda))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", SWEEP_T)
-def test_chip_pass_q_design_sweep(cuda, T):
-    """chip_smoke.py phase 2's sweep at one T: every C of the sweep, bases
-    at every offset (0 and 1 above 4,097 chips), bit-equal to the plain
-    version in the design the plan promises; short rows take both designs."""
+@pytest.mark.parametrize("T, chips", [pytest.param(T, SWEEP_C, id=str(T)) for T in SWEEP_T]
+                         + [pytest.param(T, (C,), id=f"{T}-{C}") for C, T in BYTES_EDGE])
+def test_chip_pass_q_design_sweep(cuda, T, chips):
+    """The int8 pass's sweep at one T: every C of the sweep (or one side of
+    the row design's 16 MiB limit), bases at every offset (0 and 1 above
+    4,097 chips), bit-equal to the plain version in the design the plan
+    promises; rows the row design has a kernel for take both designs."""
     took = {"rows": 0, "tiles": 0}
-    for C in SWEEP_C:
+    for C in chips:
         for design, n in int8_design_cases(cuda, T, C, np.random.default_rng(T * 31 + C)).items():
             took[design] += n
     torch.cuda.synchronize()
-    assert took["tiles"] > 0 and (took["rows"] > 0) == (T in kernels._Q_ROWS_T)
+    assert took["tiles"] > 0 and (took["rows"] > 0) == any(rows_taken(C, T) for C in chips)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [1, 7, 8, 32, 33, 257, 360, 384, 385, 513, 2880])
+@pytest.mark.parametrize("T", F32_ADVERSARIAL_T)
 def test_chip_pass_designs_match_plain(cuda, T):
-    """Each design of the f32 pass that takes T-sample rows, forced, equals
-    the plain version on adversarial rows with invalid padding; chip_pass
-    launches the design its plan promises, on contiguous tensors and on
-    views off a 16-byte boundary, and equals the plain version there."""
+    """Each design of the f32 pass that takes T-sample rows, forced (the
+    long-row design at every T, the group design up to its threshold),
+    equals the plain version on adversarial rows with invalid padding;
+    chip_pass launches the design its plan promises, on contiguous tensors
+    and on views off a 16-byte boundary, and equals the plain version there."""
     C = 1003
     args = [torch.from_numpy(x).to(cuda) for x in f32_edge_fleet(np.random.default_rng(T), C, T)]
     for params in F32_PARAMS:
@@ -147,10 +173,9 @@ def test_chip_pass_designs_match_plain(cuda, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [1, 2, 3, 7, 8, 9, 16, 31, 32, 33, 64, 256, 257, 300, 360, 384,
-                               385, 512, 513, 720])
+@pytest.mark.parametrize("T", F32_SWEEP_T)
 def test_chip_pass_design_sweep(cuda, T):
-    """chip_smoke.py phase 2's f32 sweep at one T: every C of the sweep,
+    """The f32 pass's sweep through its plan at one T: every C of the sweep,
     bases at each offset, bit-equal to the plain version in the design the
     plan promises."""
     took = {}
@@ -183,6 +208,32 @@ def test_fleet_on_card_matches_cpu(cuda):
     for quantize in (False, True):
         av, _ = evaluate_loaded(fleet_np, 256, tp.PolicyParams(), quantize, cuda)
         np.testing.assert_array_equal(av, expected)
+
+
+@pytest.mark.gpu
+def test_xl_fleet_on_card(cuda):
+    """bench.py's XL point, 1,048,576 chips x 360 samples in 65,536 slices
+    built on the card: evaluate_fleet_c, _qc and _qu give the expected
+    verdicts, and each kernel equals its plain version."""
+    inputs, expected = seeded_fleet(cuda, XL_CHIPS, SAMPLES, XL_SLICES)
+    tc, hbm, valid, age, slice_id, parr = inputs
+    q = tp.quantize_fleet_inputs(inputs)
+    assert tp.assert_uniform_slices(slice_id, XL_CHIPS // XL_SLICES) == XL_SLICES
+    bounds = tp.slice_bounds(slice_id, XL_SLICES, device=cuda)
+    verdicts = {
+        "evaluate_fleet_c": tp.evaluate_fleet_c(tc, hbm, valid, age, bounds, parr)[0],
+        "evaluate_fleet_qc": tp.evaluate_fleet_qc(q[0], q[1], q[2], bounds, q[4])[0],
+        "evaluate_fleet_qu": tp.evaluate_fleet_qu(q[0], q[1], q[2], q[4],
+                                                  XL_CHIPS // XL_SLICES)[0],
+    }
+    for path, v in verdicts.items():
+        np.testing.assert_array_equal(v.cpu().numpy(), expected, err_msg=path)
+    candidate = tp.chip_pass_q(q[0], q[1], q[2], q[4])
+    assert torch.equal(candidate, tp.chip_pass_q_plain(q[0], q[1], q[2], q[4]))
+    assert torch.equal(tp.chip_pass(tc, hbm, valid, age, parr),
+                       tp.chip_pass_plain(tc, hbm, valid, age, parr))
+    assert torch.equal(kernels.slice_gate(candidate, bounds),
+                       kernels.slice_gate_plain(candidate, bounds))
 
 
 @pytest.mark.gpu
@@ -250,9 +301,60 @@ def test_uniform_and_window_on_card_match_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_sharded_one_rank_nccl_matches_single_device(cuda, tmp_path):
+def test_streaming_window_full_width(cuda):
+    """The daemon's window at full width, K = 12 chunks of 6 new samples a
+    cycle over 14 cycles (the ring wraps): each cycle's evaluate_window_qc
+    and _qu equal evaluate_fleet_qc over the last <= 12 chunks and the
+    verdicts the chunks were built for, with slices that turn idle exactly
+    when their busy chunk is evicted; update_window_ (as analyze --stream
+    runs it) and update_window give the same rings, the functional form
+    fresh ones; each window evaluation launches the int8 kernel once, in the
+    row design, and the qc evaluation the slice gate once."""
+    chunks, expected = stream_chunks(cuda)
+    assert not np.array_equal(expected[11], expected[12])
+    assert not np.array_equal(expected[12], expected[13])
+    assert not np.array_equal(expected[0], expected[1])
+    age = torch.full((CHIPS,), 7200.0, device=cuda)
+    params = tp.PolicyParams(hbm_threshold=0.5)  # the hbm samples (<= 39%) rescue no chip
+    pq = torch.from_numpy(tp.quantize_params(
+        np.array([params.lookback_s, params.hbm_cutoff()], np.float32))).to(cuda)
+    bounds = tp.slice_bounds(np.repeat(np.arange(SLICES, dtype=np.int32), CPS), SLICES,
+                             device=cuda)
+    state = tp.init_window(CHIPS, WINDOW_CHUNKS, device=cuda)
+    fresh = tp.init_window(CHIPS, WINDOW_CHUNKS, device=cuda)
+    for cycle, (tc_new, hbm_new) in enumerate(chunks):
+        tp.reset_launches()
+        state = tp.update_window_(state, tc_new, hbm_new)
+        v, c = tp.evaluate_window_qc(state, age, bounds, pq)
+        torch.cuda.synchronize()
+        assert tp.LAUNCHES == {**dict.fromkeys(tp.LAUNCHES, 0), "chip_pass_q": 1,
+                               "slice_gate": 1}, cycle
+        assert kernels.DESIGN_LAUNCHES == {"rows": 1, "tiles": 0}, cycle
+        prev, fresh = fresh, tp.update_window(fresh, tc_new, hbm_new)
+        assert fresh[0].data_ptr() != prev[0].data_ptr(), cycle
+        assert all(torch.equal(a, b) for a, b in zip(fresh, state)), cycle
+        tp.reset_launches()
+        vu, cu = tp.evaluate_window_qu(state, age, pq, CPS)
+        torch.cuda.synchronize()
+        assert tp.LAUNCHES == {**dict.fromkeys(tp.LAUNCHES, 0), "chip_pass_q": 1}, cycle
+        window = chunks[max(0, cycle - WINDOW_CHUNKS + 1):cycle + 1]
+        full_v, full_c = tp.evaluate_fleet_qc(torch.cat([w[0] for w in window], dim=1),
+                                              torch.cat([w[1] for w in window], dim=1),
+                                              age, bounds, pq)
+        assert torch.equal(v, full_v) and torch.equal(c, full_c), cycle
+        assert torch.equal(vu, v) and torch.equal(cu, c), cycle
+        np.testing.assert_array_equal(v.cpu().numpy(), expected[cycle], err_msg=str(cycle))
+    assert torch.equal(tp.chip_pass_q(state[0], state[1], age, pq),
+                       tp.chip_pass_q_plain(state[0], state[1], age, pq))
+    assert len(chunks) == STREAM_CYCLES and chunks[0][0].shape == (CHIPS, CHUNK_SAMPLES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fleet", FLEETS)
+def test_sharded_one_rank_nccl_matches_single_device(cuda, tmp_path, fleet):
     """Every sharded evaluator in a one-rank NCCL group equals the
-    single-device evaluation on the card."""
+    single-device evaluation on the card, each one launch of its pass and
+    none of a slice reduction kernel (the sharded paths all-reduce counts)."""
     import torch.distributed as dist
 
     from tpu_pruner_torch.policy import sharded
@@ -260,8 +362,8 @@ def test_sharded_one_rank_nccl_matches_single_device(cuda, tmp_path):
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
                             rank=0, world_size=1)
     try:
-        C, S = 4096, 256
-        inputs, expected = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device=cuda)
+        C, T, S = fleet
+        inputs, expected = tp.make_example_fleet(C, T, S, idle_fraction=0.5, device=cuda)
         q = tp.quantize_fleet_inputs(inputs)
         bounds = tp.slice_bounds(inputs[4], S, device=cuda)
         ref_v, ref_c = tp.evaluate_fleet(*inputs, num_slices=S)
@@ -289,11 +391,45 @@ def test_sharded_one_rank_nccl_matches_single_device(cuda, tmp_path):
             assert sum(tp.LAUNCHES.values()) == before + 1, name
             np.testing.assert_array_equal(v.cpu().numpy(), expected, err_msg=name)
             assert torch.equal(v, ref_v) and torch.equal(c, ref_c), name
-        cycles = sharded.run_stream_local(C // S, 3, [q[0][:, i:i + 1] for i in range(5)],
-                                          [q[1][:, i:i + 1] for i in range(5)], q[2], q[4])
+        # the stream step over more cycles than its ring of 3 holds: one launch
+        # a cycle, each cycle's verdicts those of update_window + _qu
+        tc_new = [q[0][:, i:i + 1].contiguous() for i in range(5)]
+        hbm_new = [q[1][:, i:i + 1].contiguous() for i in range(5)]
+        before = dict(tp.LAUNCHES)
+        cycles = sharded.run_stream_local(C // S, 3, tc_new, hbm_new, q[2], q[4])
+        torch.cuda.synchronize()
+        assert {k: tp.LAUNCHES[k] - before[k] for k in tp.LAUNCHES} == {
+            **dict.fromkeys(tp.LAUNCHES, 0), "chip_pass_q": len(tc_new)}
+        state = tp.init_window(C, 3, device=cuda)
+        for cycle, (v, *_) in enumerate(cycles):
+            state = tp.update_window(state, tc_new[cycle], hbm_new[cycle])
+            assert torch.equal(v, tp.evaluate_window_qu(state, q[2], q[4], C // S)[0]), cycle
         assert torch.equal(cycles[-1][0], ref_v)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_gloo_on_card(cuda, tmp_path):
+    """dryrun_multichip over four gloo ranks on the one card, each running
+    every sharded path on its rows of a 131,072 x 360 fleet (the uneven case
+    131,069 chips) against the single-device results: each rank launches
+    each pass once a path and the streaming step once a cycle, and no slice
+    reduction kernel."""
+    summaries = entry.dryrun_multichip(DRYRUN_RANKS, device="cuda", backend="gloo",
+                                       chips_per_rank=CHIPS // DRYRUN_RANKS,
+                                       num_samples=SAMPLES, timeout_s=600, workdir=tmp_path)
+    want = {"make_sharded_evaluator": {"chip_pass": 1},
+            "evaluate_fleet_sharded": {"chip_pass": 1},
+            "evaluate_fleet_sharded_q": {"chip_pass_q": 1},
+            "evaluate_fleet_sharded_qc": {"chip_pass_q": 1},
+            "evaluate_fleet_sharded_qu": {"chip_pass_q": 1},
+            "make_sharded_stream_step": {"chip_pass_q": entry.STREAM_CHUNKS + 2}}
+    want = {path: {name: w.get(name, 0) for name in tp.LAUNCHES} for path, w in want.items()}
+    assert len(summaries) == DRYRUN_RANKS
+    for rank, s in enumerate(summaries):
+        assert s["launches"] == want, rank
+        assert s["num_chips"] == CHIPS and s["odd_chips"] % DRYRUN_RANKS, (rank, s)
 
 
 @pytest.mark.gpu
@@ -303,11 +439,47 @@ def test_engine_inputs_on_card_match_cpu(cuda, case):
     f64 ages and strided views through the f32 and int8 paths on the card:
     the CPU's verdicts, each kernel equal to its plain version, and a launch
     after the case succeeds (a bad id leaves the CUDA context usable)."""
-    assert engine_input_check(cuda, case, INPUT_CASES[case]) == 0
+    engine_input_check(cuda, case, INPUT_CASES[case])
     tc, hbm, valid, age = adversarial_on(cuda, 12)
-    parr = torch.tensor(PARAMS[0], device=cuda)
+    parr = torch.tensor(INT8_PARAMS[0], device=cuda)
     assert torch.equal(tp.chip_pass(tc, hbm, valid, age, parr),
                        tp.chip_pass_plain(tc, hbm, valid, age, parr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(Q_INPUT_CASES))
+def test_q_inputs_on_card_match_cpu(cuda, case):
+    """int16, uint8 and f32 samples on the int8 paths (evaluate_fleet_q,
+    _qc, _qu, evaluate_fleet_cuda_q, _cuda_qc): mapped to int8, one launch
+    of the int8 kernel a path and of the gate or the scatter reduction where
+    the path reduces, the CPU's verdicts and candidates."""
+    q_input_check(cuda, case, Q_INPUT_CASES[case])
+
+
+@pytest.mark.gpu
+def test_bad_bounds_on_card_match_cpu(cuda):
+    """Bounds outside [0, C] through evaluate_fleet_c, _qc and
+    evaluate_fleet_cuda_qc equal the CPU's; then every kernel launches once
+    more and equals its plain version, so the context survived them."""
+    make = INPUT_CASES["bf16 samples"]
+    bounds_input_check(cuda, make)
+    probe = make(cuda)
+    f32_pass = normalize_inputs(*probe[:4], probe[5])
+    q = tp.quantize_fleet_inputs(probe)
+    q_pass = normalize_inputs_q(*q[:3], q[4])
+    S = 64
+    bounds = tp.slice_bounds(probe[4], S, device=cuda)
+    ids = kernels.normalize_slice_ids(probe[4])
+    before = dict(tp.LAUNCHES)
+    candidate = tp.chip_pass(*f32_pass)
+    assert torch.equal(candidate, tp.chip_pass_plain(*f32_pass))
+    assert torch.equal(tp.chip_pass_q(*q_pass), tp.chip_pass_q_plain(*q_pass))
+    assert torch.equal(kernels.slice_gate(candidate, bounds),
+                       kernels.slice_gate_plain(candidate, bounds))
+    assert torch.equal(kernels.slice_scatter(candidate, ids, S),
+                       kernels.slice_scatter_plain(candidate, ids, S))
+    torch.cuda.synchronize()
+    assert all(tp.LAUNCHES[k] == before[k] + 1 for k in tp.LAUNCHES), tp.LAUNCHES
 
 
 @pytest.mark.gpu
@@ -335,9 +507,10 @@ def test_window_cursor_and_branches_on_card_match_cpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(GATE_CASES))
 def test_slice_gate_matches_plain(cuda, case):
-    """The slice gate on chip_smoke.gate_cases, the candidate at each of
-    GATE_OFFSETS off a 16-byte boundary: one launch (none where S = 0),
-    bit-equal to the plain version on the card and on the CPU."""
+    """The slice gate on torch_kernel_cases.gate_cases (large: also the main
+    path's shapes and the mixed fleet of 1,048,576 chips), the candidate at
+    each of GATE_OFFSETS off a 16-byte boundary: one launch (none where
+    S = 0), bit-equal to the plain version on the card and on the CPU."""
     cand_np, bounds_np = GATE_CASES[case]
     bounds = torch.from_numpy(bounds_np).to(cuda)
     S = bounds_np.size - 1
@@ -353,42 +526,74 @@ def test_slice_gate_matches_plain(cuda, case):
         assert torch.equal(got, want), k
 
 
+def assert_each_kernel_matches_plain(inputs, q, bounds, num_slices: int) -> None:
+    """Both passes, the gate and the scatter reduction on a fleet's own
+    inputs equal their plain versions."""
+    candidate = tp.chip_pass_q(q[0], q[1], q[2], q[4])
+    assert torch.equal(candidate, tp.chip_pass_q_plain(q[0], q[1], q[2], q[4]))
+    assert torch.equal(tp.chip_pass(*inputs[:4], inputs[5]),
+                       tp.chip_pass_plain(*inputs[:4], inputs[5]))
+    assert torch.equal(kernels.slice_gate(candidate, bounds),
+                       kernels.slice_gate_plain(candidate, bounds))
+    assert torch.equal(kernels.slice_scatter(candidate, inputs[4], num_slices),
+                       kernels.slice_scatter_plain(candidate, inputs[4], num_slices))
+
+
 @pytest.mark.gpu
-def test_contiguous_paths_launch_the_gate_once(cuda):
+@pytest.mark.parametrize("fleet", FLEETS)
+def test_contiguous_paths_launch_the_gate_once(cuda, fleet):
     """evaluate_fleet_c, _qc, evaluate_fleet_cuda_qc, evaluate_window_qc and
-    analyze.evaluate_loaded each launch the slice gate once, beside one pass,
-    and give the CPU's verdicts; the scatter and uniform paths never launch
-    it."""
-    C, S = 4096, 256
-    gpu_inputs, expected = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device=cuda)
+    analyze.evaluate_loaded each launch their pass once, in the design its
+    plan promises, and the slice gate once, and give the expected verdicts;
+    the uniform path (evaluate_fleet_qu) and evaluate_fleet launch their
+    pass and no gate. Each kernel equals its plain version on the fleet."""
+    C, T, S = fleet
+    gpu_inputs, expected = tp.make_example_fleet(C, T, S, idle_fraction=0.5, device=cuda)
     q = tp.quantize_fleet_inputs(gpu_inputs)
     bounds = tp.slice_bounds(gpu_inputs[4], S, device=cuda)
-    state = tp.init_window(C, 12, device=cuda)
-    state = tp.update_window_(state, q[0][:, :6].contiguous(), q[1][:, :6].contiguous())
+    state = tp.init_window(C, WINDOW_CHUNKS, device=cuda)
+    state = tp.update_window_(state, q[0][:, :CHUNK_SAMPLES].contiguous(),
+                              q[1][:, :CHUNK_SAMPLES].contiguous())
     fleet_np = tuple(x.cpu().numpy() for x in gpu_inputs[:5])
+
+    def uniform():
+        assert tp.assert_uniform_slices(gpu_inputs[4], C // S) == S
+        return tp.evaluate_fleet_qu(q[0], q[1], q[2], q[4], C // S)
+
+    gate, scatter = {"slice_gate": 1}, {"slice_scatter": 1}
     runs = {
-        "evaluate_fleet_c": (1, lambda: tp.evaluate_fleet_c(*gpu_inputs[:4], bounds,
-                                                            gpu_inputs[5])),
-        "evaluate_fleet_qc": (1, lambda: tp.evaluate_fleet_qc(q[0], q[1], q[2], bounds, q[4])),
-        "evaluate_fleet_cuda_qc": (1, lambda: tp.evaluate_fleet_cuda_qc(q[0], q[1], q[2],
-                                                                        bounds, q[4])),
-        "evaluate_window_qc": (1, lambda: tp.evaluate_window_qc(state, q[2], bounds, q[4])),
-        "evaluate_loaded": (1, lambda: evaluate_loaded(fleet_np, S, tp.PolicyParams(), False,
-                                                       cuda)),
-        "evaluate_loaded --quantize": (1, lambda: evaluate_loaded(fleet_np, S, tp.PolicyParams(),
-                                                                  True, cuda)),
-        "evaluate_fleet": (0, lambda: tp.evaluate_fleet(*gpu_inputs, num_slices=S)),
-        "evaluate_fleet_qu": (0, lambda: tp.evaluate_fleet_qu(q[0], q[1], q[2], q[4], C // S)),
+        "evaluate_fleet_c": ("chip_pass", gate, lambda: tp.evaluate_fleet_c(
+            *gpu_inputs[:4], bounds, gpu_inputs[5])),
+        "evaluate_fleet_qc": ("chip_pass_q", gate, lambda: tp.evaluate_fleet_qc(
+            q[0], q[1], q[2], bounds, q[4])),
+        "evaluate_fleet_cuda_qc": ("chip_pass_q", gate, lambda: tp.evaluate_fleet_cuda_qc(
+            q[0], q[1], q[2], bounds, q[4])),
+        "evaluate_window_qc": ("chip_pass_q", gate, lambda: tp.evaluate_window_qc(
+            state, q[2], bounds, q[4])),
+        "evaluate_loaded": ("chip_pass", gate, lambda: evaluate_loaded(
+            fleet_np, S, tp.PolicyParams(), False, cuda)),
+        "evaluate_loaded --quantize": ("chip_pass_q", gate, lambda: evaluate_loaded(
+            fleet_np, S, tp.PolicyParams(), True, cuda)),
+        "evaluate_fleet": ("chip_pass", scatter, lambda: tp.evaluate_fleet(
+            *gpu_inputs, num_slices=S)),
+        "evaluate_fleet_qu": ("chip_pass_q", {}, uniform),
     }
-    for name, (gates, run) in runs.items():
+    for name, (kind, reduction, run) in runs.items():
         tp.reset_launches()
         v, _ = run()
         torch.cuda.synchronize()
-        assert tp.LAUNCHES["slice_gate"] == gates, name
-        assert tp.LAUNCHES["chip_pass"] + tp.LAUNCHES["chip_pass_q"] == 1, name
-        if name != "evaluate_window_qc":
-            v = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
-            np.testing.assert_array_equal(v, expected, err_msg=name)
+        assert tp.LAUNCHES == {**dict.fromkeys(tp.LAUNCHES, 0), kind: 1, **reduction}, name
+        if name == "evaluate_window_qc":
+            assert kernels.DESIGN_LAUNCHES == {"rows": 1, "tiles": 0}, name
+            continue
+        if kind == "chip_pass":
+            design = f32_expected_design(C, T)
+            assert kernels.F32_DESIGN_LAUNCHES[design] == 1, name
+        else:
+            assert kernels.DESIGN_LAUNCHES[q_design(C, T)] == 1, name
+        v = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+        np.testing.assert_array_equal(v, expected, err_msg=name)
+    assert_each_kernel_matches_plain(gpu_inputs, q, bounds, S)
 
 
 @pytest.mark.gpu
@@ -414,10 +619,10 @@ def test_slice_gate_empty_inputs(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(SCATTER_CASES))
 def test_slice_scatter_matches_plain(cuda, case):
-    """The scatter reduction on chip_smoke.scatter_cases, the candidate at
-    each of GATE_OFFSETS off a 16-byte boundary: one launch (none where
-    S = 0 or C = 0), bit-equal to the plain version on the card and on the
-    CPU."""
+    """The scatter reduction on torch_kernel_cases.scatter_cases, the
+    candidate at each of GATE_OFFSETS off a 16-byte boundary: one launch
+    (none where S = 0 or C = 0), bit-equal to the plain version on the card
+    and on the CPU."""
     cand_np, ids_np, S = SCATTER_CASES[case]
     ids = torch.from_numpy(ids_np).to(cuda)
     want_cpu = kernels.slice_scatter_plain(torch.from_numpy(cand_np), torch.from_numpy(ids_np), S)
@@ -433,26 +638,37 @@ def test_slice_scatter_matches_plain(cuda, case):
 
 @pytest.mark.gpu
 def test_slice_scatter_large_fleets_match_plain(cuda):
-    """chip_smoke.scatter_fleets, with int32 and int64 ids: the cell's 260,000
-    chips in 23,149 groups in host order, 1,048,576 chips in 65,536 shuffled
-    slices, one slice of 1,048,576 chips and 1,048,576 one-chip slices."""
+    """torch_kernel_cases.scatter_fleets, with int32 and int64 ids and the
+    candidate at each of GATE_OFFSETS: the cell's 260,000 chips in 23,149
+    groups in host order, 1,048,576 chips in 65,536 shuffled slices, one
+    slice of 1,048,576 chips and 1,048,576 one-chip slices; one launch each,
+    bit-equal to the plain version on the card and on the CPU."""
     for name, (cand_np, ids_np, S) in scatter_fleets(np.random.default_rng(5)).items():
-        cand = torch.from_numpy(cand_np).to(cuda)
+        want_cpu = kernels.slice_scatter_plain(torch.from_numpy(cand_np),
+                                               torch.from_numpy(ids_np), S)
         for dtype in (torch.int32, torch.int64):
             ids = torch.from_numpy(ids_np).to(cuda, dtype)
-            assert torch.equal(kernels.slice_scatter(cand, ids, S),
-                               kernels.slice_scatter_plain(cand, ids, S)), (name, dtype)
+            for k in GATE_OFFSETS:
+                cand = gate_on(cuda, cand_np, k)
+                before = kernels.LAUNCHES["slice_scatter"]
+                got = kernels.slice_scatter(cand, ids, S)
+                torch.cuda.synchronize()
+                assert kernels.LAUNCHES["slice_scatter"] == before + 1, (name, dtype, k)
+                assert torch.equal(got.cpu(), want_cpu), (name, dtype, k)
+                assert torch.equal(got, kernels.slice_scatter_plain(cand, ids, S)), (name, dtype)
 
 
 @pytest.mark.gpu
-def test_scatter_paths_launch_the_scatter_once(cuda):
-    """evaluate_fleet, _q, evaluate_fleet_cuda and _cuda_q each launch the
-    scatter reduction once, beside one pass and no gate, and give the
-    expected verdicts; obs.summary() counts the launches."""
+@pytest.mark.parametrize("fleet", FLEETS)
+def test_scatter_paths_launch_the_scatter_once(cuda, fleet):
+    """evaluate_fleet, _q, evaluate_fleet_cuda and _cuda_q each launch their
+    pass once, in the design its plan promises, and the scatter reduction
+    once, beside no gate, and give the expected verdicts; obs.summary()
+    counts the launches."""
     from tpu_pruner_torch import obs
 
-    C, S = 4096, 256
-    inputs, expected = tp.make_example_fleet(C, 64, S, idle_fraction=0.5, device=cuda)
+    C, T, S = fleet
+    inputs, expected = tp.make_example_fleet(C, T, S, idle_fraction=0.5, device=cuda)
     q = tp.quantize_fleet_inputs(inputs)
     runs = {
         "evaluate_fleet": ("chip_pass", lambda: tp.evaluate_fleet(*inputs, num_slices=S)),
@@ -468,6 +684,10 @@ def test_scatter_paths_launch_the_scatter_once(cuda):
         torch.cuda.synchronize()
         assert tp.LAUNCHES == {**dict.fromkeys(tp.LAUNCHES, 0), kind: 1,
                                "slice_scatter": 1}, name
+        if kind == "chip_pass":
+            assert kernels.F32_DESIGN_LAUNCHES[f32_expected_design(C, T)] == 1, name
+        else:
+            assert kernels.DESIGN_LAUNCHES[q_design(C, T)] == 1, name
         np.testing.assert_array_equal(v.cpu().numpy(), expected, err_msg=name)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with obs.span("scatter"):
@@ -498,6 +718,94 @@ def test_evaluate_fleet_puts_at_most_six_operations_on_the_card(cuda):
     ops = launch_counts("evaluate_fleet, cut gke-65k layout", call)
     assert ops is not None and ops["total"] <= 6, ops
     names = " ".join(ops["by_name"])
+    assert "chip_pass_long_kernel" in names, names
     assert "slice_marks_kernel" in names and "slice_verdict_kernel" in names, names
     assert "index" not in names and "elementwise" not in names, names
 
+
+# A small dump: two idle chips of ml/idle, a busy slice, an HBM-active one
+# and a young pod; every run must find ml/idle and its 2 chips.
+CLI_DUMP = {"hbm_threshold": 0.05, "chips": [
+    {"slice": "ml/idle", "tc": [0.0] * 6, "hbm": [0.0] * 6, "pod_age_s": 7200},
+    {"slice": "ml/busy", "tc": [0.0, 0.7, 0.0], "hbm": [0.1] * 3, "pod_age_s": 7200},
+    {"slice": "ml/idle", "tc": [0.0] * 6, "hbm": [0.0] * 6, "pod_age_s": 7200},
+    {"slice": "ml/hbm-active", "tc": [0.0] * 6, "hbm": [0.2] * 6, "pod_age_s": 7200},
+    {"slice": "ml/busy", "tc": [0.0] * 3, "hbm": [0.1] * 3, "pod_age_s": 7200},
+    {"slice": "ml/young", "tc": [0.0] * 6, "pod_age_s": 60},
+]}
+
+
+def run_cli(argv) -> tuple[int, str, str]:
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = analyze.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.gpu
+def test_analyze_cli_on_card(cuda, tmp_path):
+    """The analyze CLI on the card: batch, --quantize, --shard and --shard
+    --quantize (a one-rank NCCL group) and two --stream cycles. Each run
+    launches its pass once in the design its plan promises, and the slice
+    gate once where it evaluates on one device (batch and --stream; --shard
+    all-reduces slice counts instead), and finds the idle slice."""
+    path, state = tmp_path / "dump.json", tmp_path / "state.npz"
+    runs = [("batch", [], "chip_pass", 1), ("--quantize", ["--quantize"], "chip_pass_q", 1),
+            ("--shard", ["--shard"], "chip_pass", 0),
+            ("--shard --quantize", ["--shard", "--quantize"], "chip_pass_q", 0),
+            ("--stream, cycle 1", ["--stream", str(state)], "chip_pass_q", 1),
+            ("--stream, cycle 2", ["--stream", str(state)], "chip_pass_q", 1)]
+    for cycle, (name, extra, kind, gates) in enumerate(runs):
+        path.write_text(json.dumps({**CLI_DUMP, "timestamp": 1000.0 + 180 * cycle}))
+        tp.reset_launches()
+        rc, out, err = run_cli([str(path), "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        assert rc == 0, (name, err)
+        assert tp.LAUNCHES == {**dict.fromkeys(tp.LAUNCHES, 0), kind: 1,
+                               "slice_gate": gates}, name
+        if kind == "chip_pass":
+            assert kernels.F32_DESIGN_LAUNCHES == {"groups": 1, "long": 0}, name
+        else:
+            assert kernels.DESIGN_LAUNCHES == {"rows": 1, "tiles": 0}, name
+        result = json.loads(out.strip().splitlines()[-1])
+        assert result["reclaimable_slices"] == ["ml/idle"] and result["idle_chips"] == 2, name
+    assert result["window"]["filled"] == 2 and result["newly_reclaimable"] == []
+
+
+@pytest.mark.gpu
+def test_analyze_cli_dump_width_on_card(cuda, tmp_path):
+    """The analyze CLI without --quantize on an audit dump's width, 131,072
+    chips x 8 samples in 8,192 slices (make_example_fleet's, every seventh
+    chip cut to 1-7 samples), written by port_bench.dumpfile: one launch of
+    the f32 pass, in the group design, and of the slice gate; verdicts
+    equal to evaluate_fleet on load_fleet's arrays and to the fleet's
+    expected ones."""
+    inputs, expected = tp.make_example_fleet(CHIPS, DUMP_SAMPLES, SLICES, idle_fraction=0.5,
+                                             seed=0, device="cpu")
+    tc, hbm, valid, age, slice_id = (x.numpy() for x in inputs[:5])
+    short = np.arange(CHIPS) % 7 == 3
+    cut = np.arange(CHIPS)[short] // 7 % 7 + 1  # leading samples each short series lacks
+    valid[short] = np.arange(DUMP_SAMPLES)[None, :] >= cut[:, None]
+    names = [f"ml/slice-{s:05d}" for s in range(SLICES)]
+    chip_ids = [f"pod-{i:07d}/tpu" for i in range(CHIPS)]  # sorted as written
+    params = tp.PolicyParams()
+    path = tmp_path / "dump.json"
+    dumpfile.write(path, tc, hbm, valid, age, slice_id, names, chip_ids, np.arange(CHIPS),
+                   params.lookback_s, params.hbm_threshold)
+    tp.reset_launches()
+    rc, out, err = run_cli([str(path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    assert rc == 0, err[-2000:]
+    assert tp.LAUNCHES == {**dict.fromkeys(tp.LAUNCHES, 0), "chip_pass": 1, "slice_gate": 1}
+    assert kernels.F32_DESIGN_LAUNCHES == {"groups": 1, "long": 0}
+    result = json.loads(out.strip().splitlines()[-1])
+    with open(path) as f:
+        fleet, loaded_names, _, _ = analyze.load_fleet(json.load(f))
+    assert loaded_names == names and fleet[0].shape == (CHIPS, DUMP_SAMPLES)
+    np.testing.assert_array_equal(fleet[2], valid)
+    single = tp.evaluate_fleet(*tp.fleet_from_numpy((*fleet, inputs[5].numpy()), cuda),
+                               num_slices=SLICES)
+    np.testing.assert_array_equal(single[0].cpu().numpy(), expected)
+    idle = [names[i] for i in np.flatnonzero(single[0].cpu().numpy())]
+    assert result["reclaimable_slices"] == idle
+    assert result["idle_chips"] == int(single[1].sum()) == CHIPS // 2

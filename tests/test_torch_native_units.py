@@ -1,4 +1,4 @@
-"""The C++ core's unit suite and fuzz smoke, built by the port.
+"""The C++ core's unit suite, fuzz smoke and replay smoke, built by the port.
 
 tpu_pruner_torch.native.ensure_built() compiles native/tests/test_*.cpp
 into the tpupruner_tests runner and fuzz_main.cpp into tpupruner_fuzz,
@@ -43,6 +43,24 @@ def test_runners_are_the_ports_own(built):
     for path in (native.TESTS_PATH, build_dir / "tpupruner_fuzz", native.DAEMON_PATH):
         assert os.access(path, os.X_OK), path
     assert not native._stale(units=True) and not native._stale(units=False)
+
+
+def test_replay_smoke_loads_neither_jax_nor_reference(built):
+    """The replay smoke (two daemon cycles against the port's fakes, then
+    the port's analyze --replay on each capsule) in a process of its own,
+    which loads no module of jax or of tpu_pruner: what the card's machine,
+    which has JAX installed, must show too."""
+    code = ("import sys\n"
+            "from tpu_pruner_torch.testing import replay_smoke\n"
+            "rc = replay_smoke.main()\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.startswith('jax') or m.split('.')[0] == 'tpu_pruner')\n"
+            "print('BAD=' + ','.join(bad))\n"
+            "sys.exit(rc)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=native.REPO_ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "BAD="
 
 
 def test_daemon_path_honours_env(tmp_path):

@@ -18,7 +18,7 @@ import torch
 import torch.distributed as dist
 from jax.sharding import Mesh
 
-from chip_smoke import gate_cases
+from torch_kernel_cases import gate_cases
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.policy import engine as teng
@@ -608,7 +608,7 @@ GATE_CASES = gate_cases(31)
 @pytest.mark.parametrize("case", sorted(c for c, (cand, _) in GATE_CASES.items()
                                         if c != "int64 wrap" and cand.size <= 1003))
 def test_contiguous_gate_cases_match_reference(case):
-    """The slice gate's adversarial bounds (chip_smoke.gate_cases: bounds
+    """The slice gate's adversarial bounds (torch_kernel_cases.gate_cases: bounds
     outside [0, C], out of order, empty, inverted and one-chip slices in
     int32, int64, int8, int16 and uint8, int32 wrap, 1-chip slices, one
     slice of all chips, uneven fleets with thrown bounds, S = 0, C = 0)

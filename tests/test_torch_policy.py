@@ -17,7 +17,7 @@ import torch
 
 from tpu_pruner.policy import engine as jeng
 from tpu_pruner.policy import pallas_engine as jpal
-from chip_smoke import F32_PARAMS, GATE_OFFSETS, f32_edge_fleet, gate_cases, scatter_cases
+from torch_kernel_cases import F32_PARAMS, GATE_OFFSETS, f32_edge_fleet, gate_cases, scatter_cases
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.policy import kernels
 
@@ -501,7 +501,7 @@ def rows_design_map(C: int, T: int, plan) -> tuple:
 
 @pytest.mark.parametrize("T", sorted(kernels._Q_ROWS_T))
 def test_rows_design_covers_each_row_once(T):
-    """For every (C, T) of chip_smoke.py's sweep: each byte of a whole group's
+    """For every (C, T) of the card's sweep (SWEEP_C): each byte of a whole group's
     vectors folds into exactly the row it belongs to, the groups and the
     ragged last one cover every row once, loads stay inside the tensors, and
     the vector, age and verdict accesses are aligned."""
@@ -649,8 +649,8 @@ def test_f32_design_constants_agree_with_the_kernels():
 def test_choose_plan_f32_takes_each_design_where_intended(num_chips):
     """The group design for every T up to the threshold, the long-row
     design above it (16 samples a lane where that is one chunk and 12 are
-    not, else 12; T = 360 one chunk of 12); the warp design only among the
-    forced plans, beside the plan's, at every T."""
+    not, else 12; T = 360 one chunk of 12); among the forced plans the
+    plan's, and the long-row design beside the group design's."""
     grid = -(-num_chips // 8)
     for T in range(1, 3000):
         plan = kernels._choose_plan_f32(num_chips, T)
@@ -659,8 +659,10 @@ def test_choose_plan_f32_takes_each_design_where_intended(num_chips):
         else:
             assert plan == kernels.PlanLong(16 if 384 < T <= 512 else 12, grid)
         design = kernels.F32_DESIGNS[type(plan)]
-        assert kernels._f32_plans(num_chips, T) == {"warps": kernels.PlanWarps(grid),
-                                                    design: plan}
+        assert kernels._f32_plans(num_chips, T) == {design: plan,
+                                                    "long": kernels._plan_long(num_chips, T)}
+        assert set(kernels._f32_plans(num_chips, T)) == (
+            {"groups", "long"} if T <= kernels._F32_GROUPS_MAX_T else {"long"})
     assert kernels._choose_plan_f32(num_chips, 360) == kernels.PlanLong(12, grid)
     assert kernels._choose_plan_f32(num_chips, 8) == kernels.PlanGroups(
         2, 4, -(-num_chips // 128))
@@ -900,12 +902,11 @@ def test_chip_pass_empty_fleet_launches_nothing():
     assert out.shape == (0,) and out.dtype == torch.bool
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
                            "slice_scatter": 0}
-    assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0, "warps": 0}
+    assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0}
     long_empty = torch.empty((0, 360))
     out = tp.chip_pass(long_empty, long_empty, long_empty.bool(), torch.empty(0),
                        torch.tensor([2100.0, 1.0]))
-    assert out.shape == (0,) and kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0,
-                                                                 "warps": 0}
+    assert out.shape == (0,) and kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0}
 
 
 def dump_at_width(rng, C: int, T: int, S: int) -> dict:

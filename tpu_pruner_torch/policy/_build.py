@@ -31,7 +31,6 @@ _I = ctypes.c_int
 # C signature of every entry point: pointers and the stream as void*, sizes
 # as int64, small counts as int; each returns cudaGetLastError() as an int.
 SIGNATURES = {
-    "tp_chip_pass": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
     # ..., num_chips, num_samples, then kernels.PlanQ in order, then the stream
     "tp_chip_pass_q": (_P, _P, _P, _P, _P, _I64, _I64,
                        _I64, _I64, _I, _I, _I, _I64, _I64, _P),

@@ -1,7 +1,8 @@
 // Per-chip idle-candidate pass over [chips, samples] fleet tensors, for Hopper
-// (sm_90a). Two kernels, one per sample storage:
+// (sm_90a). Two passes, one per sample storage:
 //
-//   tp_chip_pass    replaces tpu_pruner/policy/pallas_engine.py::_chip_kernel
+//   the f32 pass    (tp_chip_pass_groups, tp_chip_pass_long) replaces
+//                   tpu_pruner/policy/pallas_engine.py::_chip_kernel
 //                   (pallas_engine.py:33; f32 samples + bool validity mask);
 //   tp_chip_pass_q  replaces tpu_pruner/policy/pallas_engine.py::_chip_kernel_q
 //                   (pallas_engine.py:104; int8 1%-bucket samples, -1 = invalid
@@ -17,14 +18,11 @@
 // size of 131,072 chips x 360 samples the f32 pass moves 425,328,648 B
 // (127 us at 3.35 TB/s) and the int8 pass 95,027,208 B (28.4 us).
 //
-// tp_chip_pass has three designs; kernels._choose_plan_f32 picks one per
+// The f32 pass has two designs; kernels._choose_plan_f32 picks one per
 // launch from the row length. The group design (below) takes rows of up to
 // 256 samples, such as an audit dump's 8; the long-row design (below) takes
-// longer rows, such as the 360 of the example fleet. The warp design, the
-// first port, is kept as the timing control and runs only when a caller
-// forces its plan: one warp per chip row, lanes striding over the samples
-// with one scalar load of each array in flight, a shuffle reduction across
-// the warp, and lane 0 loading the age and applying the gates.
+// longer rows, such as the 360 of the example fleet, and rows of any length
+// where a caller forces its plan, as the group design's timing control.
 //
 // tp_chip_pass_q has two designs; kernels._choose_plan_q picks one per
 // launch. The row design takes short rows (T in RowsT below: T <= 64 and at
@@ -156,41 +154,6 @@ __device__ __forceinline__ uint8_t verdict_f32(const RowPeaks& p, float age, flo
     const bool hbm_active = p.hbm.value() >= cutoff;
     const bool eligible = flush_subnormal(age) >= lookback;
     return (idle && !hbm_active && eligible) ? 1 : 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-chip_pass_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
-                 const uint8_t* __restrict__ valid, const float* __restrict__ age,
-                 const float* __restrict__ params, uint8_t* __restrict__ out,
-                 int64_t num_chips, int64_t num_samples) {
-    const int lane = threadIdx.x & 31;
-    const int64_t row = int64_t(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-    if (row >= num_chips) return;  // whole warp leaves together
-
-    const int64_t base = row * num_samples;
-    PeakF32 peak_tc, peak_hbm;
-    bool has_data = false;
-    for (int64_t t = lane; t < num_samples; t += 32) {
-        // invalid samples read as -1, as jnp.where(valid, x, -1) does
-        const bool v = valid[base + t] != 0;
-        has_data |= v;
-        peak_tc.add(v ? flush_subnormal(tc[base + t]) : -1.0f);
-        peak_hbm.add(v ? flush_subnormal(hbm[base + t]) : -1.0f);
-    }
-    peak_tc.warp_reduce();
-    peak_hbm.warp_reduce();
-    has_data = __any_sync(kFullMask, has_data);
-
-    if (lane == 0) {
-        const float lookback = flush_subnormal(params[0]);
-        const float cutoff = flush_subnormal(params[1]);
-        out[row] = verdict_f32(RowPeaks{peak_tc, peak_hbm, has_data}, age[row], lookback,
-                               cutoff);
-    }
-}
-
-unsigned grid_for(int64_t num_chips) {
-    return unsigned((num_chips + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
 // ── int8 pass: bulk-copy ring, one producer warp, four consumer warps ───────
@@ -659,10 +622,11 @@ bool rows_plan_ok(const RowsArgs& a, int64_t T, int64_t rows, int64_t grid) {
 // ── f32 pass for short rows: a lane group per row ──────────────────────────
 //
 // An audit dump holds 8 samples a chip (dump.py's 2100 s window at its 300 s
-// step). The warp design reads such a row with 8 of its 32 lanes, runs three
-// 5-step warp reductions for 8 values, and loads the row's age only after
-// them, a second memory round trip: at 1,048,576 x 8 it took 0.28 ms against
-// a bound of 0.024 ms on the H100 (PERF.md). The group design:
+// step). The first port's design, a warp a row (retired; PERF.md), read such a
+// row with 8 of its 32 lanes, ran three 5-step warp reductions for 8 values,
+// and loaded the row's age only after them, a second memory round trip: at
+// 1,048,576 x 8 it took 0.28 ms against a bound of 0.024 ms on the H100
+// (PERF.md). The group design:
 //   - gives a row L lanes, L a power of two up to 32, and each lane up to K
 //     samples (kernels._plan_groups: K = 4 up to 8 samples, else 8; L the
 //     fewest lanes that cover the row); lane l reads samples l, l + L, ...,
@@ -670,7 +634,7 @@ bool rows_plan_ok(const RowsArgs& a, int64_t T, int64_t rows, int64_t grid) {
 //     consecutive rows;
 //   - issues every load before any arithmetic, the row's age (its first
 //     lane) and the parameters included: a thread keeps up to K samples of
-//     each array in flight, where a lane of the warp design keeps one;
+//     each array in flight, where a lane of the first port's design kept one;
 //   - reduces over log2(L) xor shuffles, which stay inside the row's aligned
 //     group of lanes, and takes the NaN and has-data flags from ballots
 //     masked to the group;
@@ -784,16 +748,16 @@ bool groups_plan_ok(const F32Args& a, int64_t T, int64_t lanes, int64_t k, int64
 
 // ── f32 pass for long rows: a warp a row, in chunks of 32 K samples ────────
 //
-// Above 256 samples the group design runs out of lanes, and the warp design
-// reaches 55-59% of its bound at T = 360 on the H100 (PERF.md): a lane
-// keeps one sample of each array in flight, and loads the age only after
-// the row's three reductions. The long-row design:
+// Above 256 samples the group design runs out of lanes, and the first
+// port's design, a warp a row, reached 55-59% of its bound at T = 360 on the
+// H100 (PERF.md): a lane kept one sample of each array in flight, and loaded
+// the age only after the row's three reductions. The long-row design:
 //   - gives a row one warp and walks it in chunks of 32 K samples, K = 12
 //     or 16 (kernels._plan_long: 16 when that takes the row in one chunk
 //     and 12 does not, else 12; T = 360 is one chunk of 12);
 //   - issues every load of a chunk (3 K a lane) before folding it, and the
 //     row's age and the parameters before the first chunk, so a warp keeps
-//     about 9 * 32 K bytes in flight where the warp design keeps 288;
+//     about 9 * 32 K bytes in flight where the first port's design kept 288;
 //   - loads the next chunk only after folding this one: two register
 //     buffers (the next chunk in flight during the fold) measured slower
 //     on the H100 in an exploratory build, since they double the samples a
@@ -1197,17 +1161,6 @@ void launch_marks(const uint8_t* cand, const void* ids, uint8_t* marks, int64_t 
 
 extern "C" {
 
-int tp_chip_pass(const void* tc, const void* hbm, const void* valid, const void* age,
-                 const void* params, void* out, int64_t num_chips, int64_t num_samples,
-                 void* stream) {
-    chip_pass_kernel<<<grid_for(num_chips), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(tc), static_cast<const float*>(hbm),
-        static_cast<const uint8_t*>(valid), static_cast<const float*>(age),
-        static_cast<const float*>(params), static_cast<uint8_t*>(out), num_chips,
-        num_samples);
-    return int(cudaGetLastError());
-}
-
 int tp_chip_pass_q(const void* tc_q, const void* hbm_q, const void* age,
                    const void* params_q, void* out, int64_t num_chips,
                    int64_t num_samples, int64_t rows_per_tile, int64_t part_bytes,
@@ -1238,7 +1191,7 @@ int tp_chip_pass_q_rows(const void* tc_q, const void* hbm_q, const void* age,
     return int(cudaGetLastError());
 }
 
-// The group design of tp_chip_pass; lanes (a row), samples (a lane) and
+// The group design of the f32 pass; lanes (a row), samples (a lane) and
 // grid are kernels.PlanGroups in order.
 int tp_chip_pass_groups(const void* tc, const void* hbm, const void* valid, const void* age,
                         const void* params, void* out, int64_t num_chips, int64_t num_samples,
@@ -1255,7 +1208,7 @@ int tp_chip_pass_groups(const void* tc, const void* hbm, const void* valid, cons
     return int(cudaGetLastError());
 }
 
-// The long-row design of tp_chip_pass; samples (a lane a chunk) and grid
+// The long-row design of the f32 pass; samples (a lane a chunk) and grid
 // are kernels.PlanLong in order.
 int tp_chip_pass_long(const void* tc, const void* hbm, const void* valid, const void* age,
                       const void* params, void* out, int64_t num_chips, int64_t num_samples,
