@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 
 from port_bench import dumpfile
-from tpu_pruner_torch import analyze, dump_reader, obs
+from tpu_pruner_torch import analyze, dump_reader, hostlib, obs
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 
@@ -343,28 +343,33 @@ def test_fleet_is_given_once(tmp_path):
 # -- the build ----------------------------------------------------------------
 
 def test_source_newer_than_library_rebuilds_it(tmp_path, monkeypatch):
-    source = tmp_path / "dump_reader.cpp"
-    shutil.copy(dump_reader.SOURCE, source)
-    library = tmp_path / "build" / "libdump_reader.so"
-    monkeypatch.setattr(dump_reader, "SOURCE", source)
-    monkeypatch.setattr(dump_reader, "LIBRARY", library)
-    dump_reader.build()
+    sources = tuple(tmp_path / source.name for source in hostlib.SOURCES)
+    for source, copy in zip(hostlib.SOURCES, sources):
+        shutil.copy(source, copy)
+    library = tmp_path / "build" / "libtorch_host.so"
+    monkeypatch.setattr(hostlib, "SOURCES", sources)
+    monkeypatch.setattr(hostlib, "LIBRARY", library)
+    hostlib.build()
     first = library.stat()
-    os.utime(source, (first.st_mtime - 10, first.st_mtime - 10))
-    dump_reader.build()
+    for source in sources:
+        os.utime(source, (first.st_mtime - 10, first.st_mtime - 10))
+    hostlib.build()
     assert library.stat().st_ino == first.st_ino  # not rebuilt
-    os.utime(source, (first.st_mtime + 10, first.st_mtime + 10))
-    dump_reader.build()
-    assert library.stat().st_ino != first.st_ino
+    for source in sources:  # each source alone makes it stale
+        built = library.stat()
+        os.utime(source, (built.st_mtime + 10, built.st_mtime + 10))
+        hostlib.build()
+        assert library.stat().st_ino != built.st_ino
+        os.utime(source, (first.st_mtime - 10, first.st_mtime - 10))
     lib = ctypes.CDLL(str(library))
-    assert lib.tp_dump_scan and lib.tp_dump_fill and lib.tp_dump_free
+    assert lib.tp_dump_scan and lib.tp_dump_fill and lib.tp_dump_free and lib.tp_slice_bounds
 
 
 def test_without_a_compiler_the_cli_reads_with_json_load(tmp_path, monkeypatch):
     path = tmp_path / "dump.json"
     path.write_text(CASES["plain"][0])
-    monkeypatch.setattr(dump_reader, "LIBRARY", tmp_path / "build" / "libdump_reader.so")
-    monkeypatch.setattr(dump_reader, "_lib", None)
+    monkeypatch.setattr(hostlib, "LIBRARY", tmp_path / "build" / "libtorch_host.so")
+    monkeypatch.setattr(hostlib, "_lib", None)
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     outs = []
     for use_reader in (False, True):
@@ -374,11 +379,11 @@ def test_without_a_compiler_the_cli_reads_with_json_load(tmp_path, monkeypatch):
         with contextlib.redirect_stdout(_Sink(out)), contextlib.redirect_stderr(_Sink(err)):
             assert analyze.main([str(path), "--device", "cpu"]) == 0
         outs.append(("".join(out), "".join(err)))
-        monkeypatch.setattr(dump_reader, "_lib", None)
+        monkeypatch.setattr(hostlib, "_lib", None)
     assert obs.counts["ingest_fallback"] - before["ingest_fallback"] == 1
     assert obs.counts["ingest_native"] == before["ingest_native"]
     assert outs[0] == outs[1]
-    assert not (tmp_path / "build" / "libdump_reader.so").exists()
+    assert not (tmp_path / "build" / "libtorch_host.so").exists()
 
 
 class _Sink:
@@ -400,8 +405,8 @@ def refuse(*args, **kwargs):
     raise AssertionError("built or loaded at import")
 subprocess.run = subprocess.Popen = ctypes.CDLL = refuse
 import tpu_pruner_torch.analyze
-from tpu_pruner_torch import dump_reader
-assert dump_reader._lib is None
+from tpu_pruner_torch import hostlib
+assert hostlib._lib is None
 assert "torch" not in sys.modules
 print("ok")
 """

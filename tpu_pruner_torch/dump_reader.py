@@ -10,10 +10,9 @@ the source for what it refuses), ``read`` decodes the bytes as ``open()`` or
 path runs as before, with its errors. The input alone decides the path; the
 ``obs`` counters ``ingest_native`` and ``ingest_fallback`` count each.
 
-The library is built at first use with the host C++ compiler (``CXX``, else
-``c++``) into ``build/torch_host/`` at the repository root and rebuilt when
-its source is newer. Without a compiler, or if the build fails, every dump
-takes the dict path. Importing this module builds nothing.
+The reader is part of the port's host library (``hostlib``), built at first
+use. Without a compiler, or if the build fails, every dump takes the dict
+path. Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -21,73 +20,17 @@ from __future__ import annotations
 import ctypes
 import io
 import json
-import os
-import subprocess
 import sys
-import threading
 import warnings
 import weakref
-from pathlib import Path
 
 import numpy as np
 
-from tpu_pruner_torch import obs
+from tpu_pruner_torch import hostlib, obs
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "dump_reader.cpp"
-LIBRARY = Path(__file__).resolve().parents[1] / "build" / "torch_host" / "libdump_reader.so"
-CXXFLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
 PART_BYTES = 4 << 20  # the chips list is read on a thread for each part of this size, up to 8
-
-_P = ctypes.c_void_p
-SIGNATURES = {  # name: (argtypes, restype)
-    "tp_dump_scan": ((ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, _P, _P, _P), _P),
-    "tp_dump_fill": ((_P,) * 8, ctypes.c_int),
-    "tp_dump_free": ((_P,), None),
-}
 SCALARS = ("timestamp", "lookback_s", "hbm_threshold")  # the scan's order
 _SIZES = 7  # chips, T, slices, names' bytes, ids' width, default ids, overflow bits
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None | bool = None  # None: not tried; False: no library
-
-
-def build() -> Path:
-    """Compile the library if its source is newer; return its path.
-
-    Raises OSError (no compiler) or RuntimeError (the compile failed). The
-    compile writes a temporary file renamed into place, so processes that
-    build at once never load a half-written library.
-    """
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return LIBRARY
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.stem}.{os.getpid()}.tmp.so")
-    cmd = [os.environ.get("CXX") or "c++", *CXXFLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"the dump reader's build failed:\n{' '.join(cmd)}\n{proc.stdout}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
-
-
-def load() -> ctypes.CDLL | None:
-    """The library's handle, built if stale; None where it cannot be built
-    or loaded (remembered for the process)."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            try:
-                lib = ctypes.CDLL(str(build()))
-            except (OSError, RuntimeError):
-                _lib = False
-            else:
-                for name, (argtypes, restype) in SIGNATURES.items():
-                    fn = getattr(lib, name)
-                    fn.argtypes, fn.restype = argtypes, restype
-                _lib = lib
-        return _lib or None
 
 
 class Scan:
@@ -140,7 +83,7 @@ def scan(data: bytes, part_bytes: int = PART_BYTES) -> Scan | None:
     """The reader's result for a dump's bytes, or None where it does not
     take them (or there is no library). ``part_bytes``: see ``PART_BYTES``;
     the result does not depend on it."""
-    lib = load()
+    lib = hostlib.load()
     if lib is None:
         return None
     sizes = (ctypes.c_int64 * _SIZES)()

@@ -40,7 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import obs
+from .. import hostlib, obs
 from .kernels import (_FLT_MIN, chip_pass, chip_pass_q, flush_subnormal, normalize_slice_ids,
                       slice_gate, slice_scatter)
 # the sharded paths' per-rank counts
@@ -268,6 +268,10 @@ def evaluate_fleet_q(tc_q, hbm_q, pod_age_s, slice_id, params_arr_q, num_slices:
 # (kernels.slice_counts_contiguous, which the sharded qc path also uses).
 
 
+_NATIVE_ID_TYPES = (np.dtype(np.int32), np.dtype(np.int64))
+_INT32_LIMIT = 1 << 31
+
+
 @obs.spanned("engine.bounds")
 def slice_bounds(slice_id, num_slices: int, device="cuda") -> torch.Tensor:
     """Host-side segment bounds (int32[S+1]) for slice-contiguous fleets.
@@ -275,16 +279,50 @@ def slice_bounds(slice_id, num_slices: int, device="cuda") -> torch.Tensor:
     Requires slice_id sorted ascending, and raises otherwise: wrong bounds
     would merge neighbour slices' verdicts. Empty slices get start == end
     and are never idle.
+
+    int32 and int64 ids in one C-contiguous row take one native pass over
+    the ids (``csrc/slice_bounds.cpp``), which checks their order and writes
+    the bounds; every other input, ids the pass does not find ascending, and
+    a host without the library take the plain version, whose bounds and
+    errors the pass gives bit for bit. The ``obs`` counters
+    ``bounds_native`` and ``bounds_fallback`` count each.
     """
     if isinstance(slice_id, torch.Tensor):
         slice_id = obs.to_host(slice_id).numpy()
     sid = np.asarray(slice_id)
+    bounds = _slice_bounds_native(sid, num_slices)
+    if bounds is None:
+        obs.count("bounds_fallback")
+        bounds = slice_bounds_plain(sid, num_slices)
+    else:
+        obs.count("bounds_native")
+    return obs.to_device(torch.from_numpy(bounds), resolve_device(device))
+
+
+def slice_bounds_plain(sid: np.ndarray, num_slices) -> np.ndarray:
+    """slice_bounds' plain version, the reference's body: ``np.diff``'s
+    order check and a binary search per bound."""
     if sid.size and (np.diff(sid) < 0).any():
         raise ValueError(
             "slice_id must be sorted ascending for the contiguous evaluator; "
             "sort chips by slice at ingest or use evaluate_fleet")
-    bounds = np.searchsorted(sid, np.arange(num_slices + 1)).astype(np.int32)
-    return obs.to_device(torch.from_numpy(bounds), resolve_device(device))
+    return np.searchsorted(sid, np.arange(num_slices + 1)).astype(np.int32)
+
+
+def _slice_bounds_native(sid: np.ndarray, num_slices) -> np.ndarray | None:
+    """The native pass's bounds, or None where it does not take the input."""
+    if not (sid.ndim == 1 and sid.dtype in _NATIVE_ID_TYPES and sid.flags.c_contiguous
+            and sid.flags.aligned and sid.size < _INT32_LIMIT
+            and isinstance(num_slices, (int, np.integer)) and 0 <= num_slices < _INT32_LIMIT):
+        return None
+    lib = hostlib.load()
+    if lib is None:
+        return None
+    bounds = np.empty(int(num_slices) + 1, dtype=np.int32)
+    if lib.tp_slice_bounds(sid.ctypes.data, sid.itemsize, sid.size, int(num_slices),
+                           bounds.ctypes.data) != 0:
+        return None
+    return bounds
 
 
 def slice_verdicts_contiguous(candidate, bounds):
