@@ -49,10 +49,15 @@ exits non-zero on failure:
    its plain version, an empty kernel and its bound, on the gke-65k layout
    (260,000 chips in 23,149 groups, host order), 1,048,576 chips in 65,536
    shuffled slices, one slice of 1,048,576 chips idle but one, and
-   1,048,576 one-chip slices (scatter_rows); and the f32 designs for each T
-   of f32_timing_t(C) at the three sizes (rows of 1 to 2,880 samples; the
-   long-row design also at its other samples a lane), and where the plan's
-   design was not the fastest.
+   1,048,576 one-chip slices (scatter_rows); the streaming window's row
+   gather (one launch moves both rings, the rows given as runs) warm and
+   cold beside its plain version, an empty kernel and its bound, at the
+   stream-260k-churn-k12 cell's shape (263,000 rows out of 263,000, 3,000 of
+   them new, the rest moved), at its burst (50,944 new) and at 1,048,576
+   rows (gather_rows);
+   and the f32 designs for each T of f32_timing_t(C) at the three sizes
+   (rows of 1 to 2,880 samples; the long-row design also at its other
+   samples a lane), and where the plan's design was not the fastest.
 
 Each timed kernel is first held against its plain version on the inputs it
 is timed on. The fleets and shapes come from tests/torch_kernel_cases.py,
@@ -63,7 +68,8 @@ XL times under "xl" (the int8 kernel also its T = 12 times under "window"
 and its sweep under "design_sweep", the f32 kernel its times at the dump's
 width and its sweep under "dump", the slice gate, which has no Pallas
 counterpart, its other fleets and sweep under "fleets", and the scatter
-reduction, which has none either, its shapes under "fleets"); the line
+reduction and the row gather, which have none either, their shapes under
+"fleets"); the line
 before it is {"end_to_end": {...}}, the end-to-end times at both sizes; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -87,10 +93,11 @@ from tpu_pruner_torch.policy import (
     evaluate_fleet_c, evaluate_fleet_qc, evaluate_fleet_qu, evaluate_window_qc,
     evaluate_window_qu, init_window, make_example_fleet, quantize_fleet_inputs, slice_bounds,
     update_window, update_window_)
+from tpu_pruner_torch.policy.engine import gather_runs
 from tpu_pruner_torch.policy.kernels import (
     _F32_GROUPS_K, _F32_LONG_K, _Q_ROWS_T, F32_DESIGNS, PlanLong, PlanRows, _choose_plan_q,
     _f32_plans, _launch_f32, _launch_q, _plan_q, _plan_q_rows, _sm_count, slice_gate,
-    slice_gate_plain, slice_scatter, slice_scatter_plain)
+    slice_gate_plain, slice_scatter, slice_scatter_plain, window_gather, window_gather_plain)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_kernel_cases import (  # noqa: E402
@@ -114,7 +121,9 @@ KERNEL_SYMBOLS = {"chip_pass_q": "chip_pass_q_kernel",
                   "slice_gate, int32 bounds": "slice_gate_kernelIiE",
                   "slice_scatter marks, int32 ids": "slice_marks_kernelIiE",
                   "slice_scatter marks, int64 ids": "slice_marks_kernelIlE",
-                  "slice_scatter verdicts": "slice_verdict_kernel"}
+                  "slice_scatter verdicts": "slice_verdict_kernel",
+                  "window_gather, 4-byte words": "window_gather_kernelIjE",
+                  "window_gather, bytes": "window_gather_kernelIhE"}
 # templated kernels: name -> (symbol pattern, the instantiations the plan uses)
 INSTANTIATIONS = {
     "chip_pass_q, row design, T": (r"chip_pass_q_rows_kernelILi(\d+)E", _Q_ROWS_T),
@@ -584,6 +593,60 @@ def scatter_rows(dev, flush: torch.Tensor) -> dict:
     return rows
 
 
+GATHER_REPLACES = ("none: the reference starts its window over when the fleet changes "
+                   "(tpu_pruner/analyze.py:194); engine.rekey_window carries the rows instead")
+
+
+def gather_timing(what: str, rings, gather, flush: torch.Tensor) -> dict:
+    """The row gather of both rings (``gather`` as its runs), first held
+    against the plain version: warm and cold beside the plain version, an
+    empty kernel and the bound, which counts the runs and the carried rows
+    read once and both rings written once."""
+    rows, chunks = gather.numel(), rings[0].shape[1]
+    runs = torch.from_numpy(gather_runs(gather.cpu().numpy())).to(gather.device)
+    check(all(torch.equal(a, b) for a, b in zip(window_gather(*rings, runs, rows),
+                                                window_gather_plain(*rings, runs, rows))),
+          f"window_gather differs from the plain version at {what}")
+    ms = time_fn(lambda: window_gather(*rings, runs, rows))
+    ms_cold = time_fn(lambda: window_gather(*rings, runs, rows), flush)
+    carried = int((gather >= 0).sum())
+    nbytes = runs.nbytes + 2 * carried * chunks + 2 * rows * chunks
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    plain_ms = time_fn(lambda: window_gather_plain(*rings, runs, rows))
+    plain_cold = time_fn(lambda: window_gather_plain(*rings, runs, rows), flush)
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), 200)  # an empty kernel, timed alike
+    log(f"phase 4: {what}: window_gather {ms:.4f} ms warm, {ms_cold:.4f} ms cold, bound "
+        f"{bound:.5f} ms ({nbytes} bytes, {bound / ms:.3f} of it warm); plain {plain_ms:.4f} "
+        f"ms warm, {plain_cold:.4f} ms cold; an empty kernel {floor_ms:.4f} ms")
+    return {"name": "window_gather", "route": "cuda", "source": SOURCE,
+            "replaces": GATHER_REPLACES, "pallas_counterpart": None, "ms": ms,
+            "ms_cold": ms_cold, "plain_ms": plain_ms, "plain_ms_cold": plain_cold,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+            "launch_floor_ms": floor_ms, "rows": rows, "carried": carried,
+            "runs": runs.shape[1], "chunks": chunks, "max_abs_err": 0}
+
+
+def gather_rows(dev, flush: torch.Tensor) -> dict:
+    """Phase 4's row gather: K = 12 rings, rows new at random places and
+    the carried rows moved (each a few places on, as a fleet's changes shift
+    them), at the churn cell's shape (3,000 new rows in 1,500 places, about
+    3,000 runs), its burst (50,944 new rows in one run) and 1,048,576 rows."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(9753)
+    out = {}
+    for what, rows, places, new in (
+            ("263,000 rows, 3,000 new", 263_000, 1_500, 2),
+            ("263,000 rows, 50,944 new (the burst)", 263_000, 1, 50_944),
+            ("1,048,576 rows, 12,000 new", 1_048_576, 6_000, 2)):
+        rings = tuple(torch.randint(-1, 101, (rows, WINDOW_CHUNKS), generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+        gather = (torch.arange(rows, device=dev) + 4) % rows
+        at = torch.randperm(rows - new, generator=g, device=dev)[:places]
+        gather[(at[:, None] + torch.arange(new, device=dev)).view(-1)] = -1
+        out[what] = gather_timing(what, rings, gather, flush)
+    return out
+
+
 def phase_dump_width(dev, flush: torch.Tensor) -> dict:
     """Phase 4 at an audit dump's width, 8 samples a chip: the f32 pass in
     each design at 32,768, 131,072 and 1,048,576 chips, warm and cold, beside
@@ -706,6 +769,8 @@ def main() -> int:
     rows["slice_gate"]["fleets"] = gate_fleets(dev, flush)
     scatter = scatter_rows(dev, flush)
     rows["slice_scatter"] = {**next(iter(scatter.values())), "fleets": scatter}
+    gathers = gather_rows(dev, flush)
+    rows["window_gather"] = {**next(iter(gathers.values())), "fleets": gathers}
     print(json.dumps({"end_to_end": {f"{CHIPS} chips": end_to_end,
                                      f"{XL_CHIPS} chips": xl_end_to_end}}))
     print(json.dumps({"kernels": list(rows.values())}))

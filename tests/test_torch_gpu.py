@@ -10,6 +10,7 @@ so it also runs on a machine that has only PyTorch:
 import contextlib
 import io
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from torch_kernel_cases import (
 from tpu_pruner_torch import analyze, entry
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
-from tpu_pruner_torch.policy import kernels
+from tpu_pruner_torch.policy import engine, kernels
 from tpu_pruner_torch.policy.engine import normalize_inputs, normalize_inputs_q
 
 INPUT_CASES = input_cases(5)
@@ -478,6 +479,10 @@ def test_bad_bounds_on_card_match_cpu(cuda):
                        kernels.slice_gate_plain(candidate, bounds))
     assert torch.equal(kernels.slice_scatter(candidate, ids, S),
                        kernels.slice_scatter_plain(candidate, ids, S))
+    rings = q[0][:64, :12].contiguous(), q[1][:64, :12].contiguous()
+    runs = torch.from_numpy(engine.gather_runs(np.arange(-1, 63))).to(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(kernels.window_gather(*rings, runs, 64),
+                                                 kernels.window_gather_plain(*rings, runs, 64)))
     torch.cuda.synchronize()
     assert all(tp.LAUNCHES[k] == before[k] + 1 for k in tp.LAUNCHES), tp.LAUNCHES
 
@@ -809,3 +814,96 @@ def test_analyze_cli_dump_width_on_card(cuda, tmp_path):
     idle = [names[i] for i in np.flatnonzero(single[0].cpu().numpy())]
     assert result["reclaimable_slices"] == idle
     assert result["idle_chips"] == int(single[1].sum()) == CHIPS // 2
+
+
+# --- the keyed window (rekey_window) ----------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, chunks, view, scattered", [
+    (1, 12, False, False), (1003, 12, False, True), (1003, 5, False, False),
+    (1003, 12, True, False), (263_000, 12, False, False), (263_000, 12, False, True)])
+def test_window_gather_matches_plain(cuda, rows, chunks, view, scattered):
+    """The row gather against its plain version: 4-byte words (K = 12) and
+    bytes (K = 5, or rings off a 4-byte boundary), runs of moved rows with
+    new ones among them (the carry's shape) and a row index a row
+    (scattered), one launch each."""
+    g = torch.Generator().manual_seed(rows + chunks)
+    tc = torch.randint(-1, 128, (rows + 1, chunks), generator=g, dtype=torch.int8)
+    hbm = torch.randint(-1, 128, (rows + 1, chunks), generator=g, dtype=torch.int8)
+    if view:  # rows of 12 bytes from the second byte on: no 4-byte words
+        tc = tc.view(-1)[1:1 + rows * chunks].view(rows, chunks)
+        hbm = hbm.view(-1)[1:1 + rows * chunks].view(rows, chunks)
+    else:
+        tc, hbm = tc[:rows], hbm[:rows]
+    out_rows = rows + rows // 100 + 2
+    if scattered:
+        gather = torch.randint(-1, rows, (out_rows,), generator=g)
+    else:
+        gather = (torch.arange(out_rows) + 3) % rows
+        gather[torch.randperm(out_rows, generator=g)[:out_rows // 50 + 1]] = -1
+    runs = torch.from_numpy(engine.gather_runs(gather.numpy()))
+    want = kernels.window_gather_plain(tc, hbm, runs, out_rows)
+    before = kernels.LAUNCHES["window_gather"]
+    got = kernels.window_gather(tc.to(cuda), hbm.to(cuda), runs.to(cuda), out_rows)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["window_gather"] == before + 1
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert all(torch.equal(b, torch.where(gather[:, None] >= 0, r[gather.clamp(min=0)], -1).to(
+        torch.int8)) for b, r in zip(want, (tc, hbm)))
+    empty = kernels.window_gather(tc.to(cuda), hbm.to(cuda), runs[:, :0].to(cuda), 0)
+    assert empty[0].shape == (0, chunks) and kernels.LAUNCHES["window_gather"] == before + 1
+
+
+@pytest.mark.gpu
+def test_rekey_window_at_the_cells_size_matches_cpu(cuda):
+    """The cell stream-260k-churn-k12's daemon cycles at full size (260,000
+    chips in 23,149 groups, K = 12), 20 cycles of a churned pool with the
+    Multislice group's burst: rekey_window, update_window_ and
+    evaluate_window_qc on the card give the rings, verdicts and candidates
+    of the same calls on the CPU (the plain versions) bit for bit; a cycle
+    that re-keys launches the row gather once and each one the int8 pass
+    once, in the row design, and the slice gate once; a cycle whose chips
+    are those of the last launches no gather; the carry copies nothing back
+    to the host."""
+    from port_bench import churn
+    from tpu_pruner_torch import obs
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "port_bench/configs/gke-65k-jobset-churn.json").read_text())
+    mix = json.loads((root / "port_bench/traffic/stream-churn-k12.json").read_text())
+    mix = dict(mix, pool_cycles=20, burst_every=10)
+    pool = churn.Churn(cfg, mix, 2**31 + 303, cuda)
+    cycles = [pool.cycle(t, mix) for t in range(20)]
+    cycles.insert(5, cycles[4])  # a cycle whose chips are the last one's
+    parr = np.array([cfg["lookback_s"], cfg["hbm_threshold"]], dtype=np.float32)
+    pq = torch.from_numpy(tp.quantize_params(parr))
+    K = cfg["window_chunks"]
+    states = {d: tp.init_window(0, K, device=d) for d in ("cpu", "cuda")}
+    rows = {d: tp.WindowRows.of(np.zeros(0, dtype=np.int64), 0) for d in states}
+    gathers = 0
+    for i, c in enumerate(cycles):
+        out = {}
+        for d in ("cuda", "cpu"):
+            tp.reset_launches()
+            synced = obs.counts["d2h_bytes"], obs.counts["host_syncs"]
+            r = tp.rekey_window(states[d], rows[d], c.keys, i)
+            assert (obs.counts["d2h_bytes"], obs.counts["host_syncs"]) == synced  # no readback
+            rows[d] = r.rows
+            tc, hbm, valid, age, _, _ = tp.fleet_from_numpy(
+                (c.tc, c.hbm, c.valid, c.age, c.slice_id, parr), d)
+            states[d] = tp.update_window_(r.state, tp.quantize_samples_device(tc, valid),
+                                          tp.quantize_samples_device(hbm, valid))
+            bounds = tp.slice_bounds(c.slice_id, c.slices, device=d)
+            out[d] = tp.evaluate_window_qc(states[d], age, bounds, pq.to(d))
+            if d == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(tp.LAUNCHES)
+        assert launches == {**dict.fromkeys(tp.LAUNCHES, 0), "chip_pass_q": 1, "slice_gate": 1,
+                            "window_gather": int(i != 5)}, i
+        gathers += launches["window_gather"]
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out["cuda"], out["cpu"])), i
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(states["cuda"][:2], states["cpu"][:2]))
+        assert np.array_equal(rows["cuda"].kept_keys, rows["cpu"].kept_keys), i
+    assert gathers == len(cycles) - 1
+    assert states["cuda"][0].shape[0] > len(cycles[-1].keys)  # rows kept for absent chips

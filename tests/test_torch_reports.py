@@ -49,7 +49,7 @@ def normalize_stderr(err, module="analyze"):
     marker = f"\npython -m tpu_pruner.{module}: error: "
     usage, sep, message = err.partition(marker)
     usage = " ".join(usage.replace("[--device {cuda,cpu}]", "")
-                     .replace("[--profile PATH]", "").split())
+                     .replace("[--profile PATH]", "").replace("[--follow-fleet]", "").split())
     return usage + sep + message
 
 

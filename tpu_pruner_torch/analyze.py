@@ -56,6 +56,18 @@ a changed fleet is an error (start over with ``--reset``). STATE has the
 same keys and dtypes as tpu_pruner.analyze's, so either package continues
 a window the other began.
 
+``--stream STATE --follow-fleet`` keeps the window across a fleet that
+changes between cycles, as a cluster's does (pods replaced under new
+names, a JobSet's pods recreated, a node missing a scrape): the window's
+rows are keyed by each chip's dump ``id`` (a dump without ids, or with a
+repeated one, is refused) and carried by the engine's ``rekey_window``. A
+chip new to the window starts with no data; an absent chip's row is kept,
+a chunk of no data for each cycle it misses, until its last chunk leaves
+the window, so a chip back after a missed scrape is judged on its whole
+history; verdicts cover the chips of this dump alone, and deltas go by
+slice name. STATE then also holds the rows' ids, the cycle each was last
+present in and the cycle's number (``row_ids``, ``row_seen``, ``cycle``).
+
 Decision-audit mode (``--explain <ns>/<pod>``): read the daemon's
 DecisionRecord trail, from the ``--audit-log`` JSONL file or the live
 ``/debug/decisions`` endpoint (``--decisions-url http://host:8080``), and
@@ -250,6 +262,29 @@ def _process_group(device: str):
             dist.destroy_process_group()
 
 
+def _follow_fleet(saved, ring, chip_ids, slice_names):
+    """--follow-fleet: the saved window's rows carried to this dump's chips
+    (engine.rekey_window; the ids joined as int64 ranks in their union).
+    Returns (ring, the rows' ids, their WindowRows, the previous verdicts
+    of this dump's slices)."""
+    from tpu_pruner_torch.policy import WindowRows, rekey_window
+
+    row_ids = saved["row_ids"] if "row_ids" in saved.files else saved["chip_ids"]
+    cycle = int(saved["cycle"]) if "cycle" in saved.files else 0
+    row_seen = (saved["row_seen"] if "row_seen" in saved.files
+                else np.full(len(row_ids), cycle, dtype=np.int64))
+    if len(row_ids) != ring[0].shape[0]:
+        raise SystemExit("stream state's rows are not its window's; re-init with --reset")
+    union = np.unique(np.concatenate([row_ids, chip_ids]))
+    row_keys = np.searchsorted(union, row_ids)
+    present = int((row_seen == cycle).sum())  # the last cycle's chips, the first rows
+    rows = WindowRows(row_keys[:present], cycle, row_keys[present:], row_seen[present:])
+    rekeyed = rekey_window(ring, rows, np.searchsorted(union, chip_ids), cycle + 1)
+    was = set(saved["slice_names"][saved["prev_verdicts"]].tolist())
+    return (rekeyed.state, union[rekeyed.rows.all_keys()], rekeyed.rows,
+            np.array([name in was for name in slice_names], dtype=bool))
+
+
 def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
     """One incremental cycle: fold this dump's samples into the ring state
     and emit verdict deltas + window staleness (the qc window path, so
@@ -259,7 +294,7 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
     import torch
 
     from tpu_pruner_torch.policy import (
-        evaluate_window_qc, fleet_from_numpy, init_window, quantize_params,
+        WindowRows, evaluate_window_qc, fleet_from_numpy, init_window, quantize_params,
         quantize_samples_device, slice_bounds, update_window_, window_from_numpy)
 
     tc, hbm, valid, age, slice_id = fleet
@@ -274,10 +309,23 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
             ring = init_window(num_chips, K, device=args.device)
             chunk_times = np.full(K, np.nan)
             prev_verdicts = np.zeros(num_slices, dtype=bool)
+            row_ids, rows = chip_ids, WindowRows.of(np.arange(num_chips), 0)
+        elif args.follow_fleet:
+            with np.load(state_path, allow_pickle=False) as saved:
+                if int(saved["tc_ring"].shape[1]) != K:
+                    raise SystemExit(
+                        f"stream state has {saved['tc_ring'].shape[1]} window chunks, "
+                        f"--window-chunks asked for {K}; re-init with --reset")
+                ring = window_from_numpy(
+                    (saved["tc_ring"], saved["hbm_ring"], saved["cursor"]), args.device)
+                ring, row_ids, rows, prev_verdicts = _follow_fleet(saved, ring, chip_ids,
+                                                                    slice_names)
+                chunk_times = saved["chunk_times"]
         else:
             with np.load(state_path, allow_pickle=False) as saved:
                 names = np.asarray(slice_names)
                 if (saved["chip_ids"].shape != chip_ids.shape
+                        or saved["tc_ring"].shape[0] != len(chip_ids)
                         or (saved["chip_ids"] != chip_ids).any()
                         or saved["slice_names"].shape != names.shape
                         or (saved["slice_names"] != names).any()):
@@ -313,12 +361,15 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
     # object also stops np.savez from appending .npz to plain paths.
     with obs.span("analyze.state_save"):
         tmp_path = state_path + ".tmp"
+        rows_kept = {}
+        if args.follow_fleet:
+            rows_kept = {"row_ids": row_ids, "row_seen": rows.all_seen(), "cycle": rows.cycle}
         with open(tmp_path, "wb") as f:
             np.savez(f, tc_ring=obs.to_host(ring[0]).numpy(),
                      hbm_ring=obs.to_host(ring[1]).numpy(),
                      cursor=int(obs.to_host(ring[2])), chunk_times=chunk_times,
                      chip_ids=chip_ids, slice_names=np.asarray(slice_names),
-                     prev_verdicts=verdicts)
+                     prev_verdicts=verdicts, **rows_kept)
         os.replace(tmp_path, state_path)
     with obs.span("analyze.report"):
         newly = [slice_names[i] for i in range(num_slices)
@@ -1221,6 +1272,11 @@ def main(argv=None) -> int:
     parser.add_argument("--reset", action="store_true",
                         help="with --stream: discard STATE and start a fresh "
                              "window from this dump")
+    parser.add_argument("--follow-fleet", action="store_true",
+                        help="with --stream: keep the window when the fleet "
+                             "changes, its rows keyed by each chip's 'id': "
+                             "new chips start with no data, an absent chip's "
+                             "row stays until its data leaves the window")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where to evaluate: the CUDA kernels on the card "
                              "(default) or their plain versions on the CPU")
@@ -1301,6 +1357,8 @@ def _main(parser, args) -> int:
         parser.error("a metrics dump path is required (or use --explain)")
     if args.window_chunks < 1:
         parser.error("--window-chunks must be >= 1")
+    if args.follow_fleet and not args.stream:
+        parser.error("--follow-fleet only applies with --stream")
     if args.stream and args.shard:
         # the window pass reads [C, K] chunk maxima, which is tiny, so
         # sharding it buys nothing; make_sharded_stream_step is the API for
@@ -1315,6 +1373,11 @@ def _main(parser, args) -> int:
         doc = dump_reader.read(args.dump)
     fleet, slice_names, chip_ids, default_ids = load_fleet(doc)
     slice_id = fleet[4]
+    if args.follow_fleet and (default_ids or len(np.unique(chip_ids)) != len(chip_ids)):
+        raise SystemExit(
+            f"--follow-fleet keys the window by each chip's 'id': {default_ids} of "
+            f"{len(chip_ids)} chips have none, or ids repeat; give every chip a "
+            "unique id (dump.py emits namespace/pod/accelerator)")
     if args.stream and default_ids:
         # Positional ids make the --stream fleet-identity check vacuous: a
         # producer that reorders chips between cycles passes it while ring

@@ -1,6 +1,8 @@
 """The port's host C++ library: the audit dump's reader (``csrc/dump_reader.cpp``,
-see ``dump_reader``) and the contiguous evaluator's bounds pass
-(``csrc/slice_bounds.cpp``, see ``policy.engine.slice_bounds``).
+see ``dump_reader``), the contiguous evaluator's bounds pass
+(``csrc/slice_bounds.cpp``, see ``policy.engine.slice_bounds``) and the
+streaming window's key join (``csrc/window_keys.cpp``, see
+``policy.engine.rekey_window``).
 
 The library is built at first use with the host C++ compiler (``CXX``, else
 ``c++``) into ``build/torch_host/`` at the repository root and rebuilt when a
@@ -18,7 +20,7 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "dump_reader.cpp", _CSRC / "slice_bounds.cpp")
+SOURCES = (_CSRC / "dump_reader.cpp", _CSRC / "slice_bounds.cpp", _CSRC / "window_keys.cpp")
 LIBRARY = Path(__file__).resolve().parents[1] / "build" / "torch_host" / "libtorch_host.so"
 CXXFLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
 
@@ -28,6 +30,8 @@ SIGNATURES = {  # name: (argtypes, restype)
     "tp_dump_fill": ((_P,) * 8, ctypes.c_int),
     "tp_dump_free": ((_P,), None),
     "tp_slice_bounds": ((_P, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, _P), ctypes.c_int),
+    "tp_rekey": ((_P, ctypes.c_int64, ctypes.c_int64, _P, _P, ctypes.c_int64, _P, ctypes.c_int64,
+                  ctypes.c_int64, ctypes.c_int64, _P, _P, _P, _P, _P), ctypes.c_int),
 }
 
 _lock = threading.Lock()

@@ -29,7 +29,9 @@ nothing. ``ingest_native`` and ``ingest_fallback`` count the dumps that
 ``analyze`` read with its native reader and with ``json.load``
 (``dump_reader.read``); ``bounds_native`` and ``bounds_fallback`` the
 ``engine.slice_bounds`` calls that the native pass and the plain version
-answered.
+answered; ``window_rows_new``, ``_retained``, ``_dropped`` and ``_moved``
+the streaming window's rows that ``engine.rekey_window`` added for new
+chips, kept for absent ones, dropped, and carried to another place.
 
 ``profile(path, body, cuda)`` runs ``body`` under ``torch.profiler``, writes
 a Chrome trace to ``path`` and prints the summary to stderr, on the card
@@ -53,7 +55,9 @@ OUTSIDE = "(no span)"  # idle time outside every span, in ``idle_by_span``
 SPIN_NAMES = ("spin_kernel", "sleep")  # the kernel that opens a traced window
 
 counts = {"h2d_bytes": 0, "d2h_bytes": 0, "host_syncs": 0, "ingest_native": 0,
-          "ingest_fallback": 0, "bounds_native": 0, "bounds_fallback": 0}
+          "ingest_fallback": 0, "bounds_native": 0, "bounds_fallback": 0,
+          "window_rows_new": 0, "window_rows_retained": 0, "window_rows_dropped": 0,
+          "window_rows_moved": 0}
 # kernels.py's launch counters, reported by summary() under these prefixes
 _KERNEL_COUNTERS = (("launches", "LAUNCHES"), ("design_launches", "DESIGN_LAUNCHES"),
                     ("f32_design_launches", "F32_DESIGN_LAUNCHES"))

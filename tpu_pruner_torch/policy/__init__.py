@@ -26,6 +26,8 @@ arbitrary order             ``evaluate_fleet_q`` /     ``evaluate_fleet_sharded_
 streaming (daemon loop)     ``update_window(_)`` +     ``make_sharded_stream_step``
                             ``evaluate_window_qu/qc``  (fused update + verdict per
                                                        rank, no collective)
+streaming, fleet changing   ``rekey_window``, then     none
+between cycles              the row above
 ==========================  =========================  ===========================
 
 int8 quantized storage (``quantize_fleet_inputs``) is the recommended form:
@@ -44,6 +46,8 @@ from tpu_pruner_torch.policy.engine import (
     INVALID_Q,
     UTIL_SCALE,
     PolicyParams,
+    Rekeyed,
+    WindowRows,
     assert_uniform_slices,
     evaluate_chips,
     evaluate_chips_q,
@@ -62,6 +66,7 @@ from tpu_pruner_torch.policy.engine import (
     quantize_params,
     quantize_samples,
     quantize_samples_device,
+    rekey_window,
     slice_bounds,
     slice_verdicts,
     slice_verdicts_contiguous,
@@ -95,6 +100,8 @@ __all__ = [
     "LAUNCHES",
     "UTIL_SCALE",
     "PolicyParams",
+    "Rekeyed",
+    "WindowRows",
     "assert_uniform_slices",
     "chip_pass",
     "chip_pass_plain",
@@ -129,6 +136,7 @@ __all__ = [
     "quantize_params",
     "quantize_samples",
     "quantize_samples_device",
+    "rekey_window",
     "reset_launches",
     "shard_bounds",
     "slice_bounds",

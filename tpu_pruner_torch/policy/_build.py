@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``policy/csrc/chip_pass.cu`` (both chip passes and both slice reductions)
+``policy/csrc/chip_pass.cu`` (both chip passes, both slice reductions and the
+window's row gather)
 becomes ``build/torch_kernels/libchip_pass.so`` at the repository root,
 compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain C interface. That
 builds in seconds, where an extension that includes PyTorch's headers takes
@@ -45,6 +46,9 @@ SIGNATURES = {
     "tp_slice_gate": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
     # candidate, ids, marks, out, num_chips, num_slices, id_bytes, the stream
     "tp_slice_scatter": (_P, _P, _P, _P, _I64, _I64, _I, _P),
+    # tc_in, hbm_in, runs ([2, M] int32), M, tc_out, hbm_out, rows out, row bytes,
+    # the stream
+    "tp_window_gather": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _P),
 }
 SOURCE = CSRC / "chip_pass.cu"
 LIBRARY = BUILD_DIR / "libchip_pass.so"

@@ -11,7 +11,8 @@
 // And the two slice reductions at the end of this file, which reduce the
 // pass's chip verdicts to slice verdicts and have no Pallas counterpart: the
 // contiguous slice gate, tp_slice_gate, for chips in slice order, and the
-// scatter reduction, tp_slice_scatter, for chips in any order.
+// scatter reduction, tp_slice_scatter, for chips in any order. Last, the
+// streaming window's row gather, tp_window_gather, which has none either.
 //
 // Both read every sample byte once and write one byte per chip: they are
 // bound by device-memory bandwidth and do no tensor-core work. At the fleet
@@ -1157,6 +1158,63 @@ void launch_marks(const uint8_t* cand, const void* ids, uint8_t* marks, int64_t 
         cand, static_cast<const I*>(ids), marks, num_chips, num_slices);
 }
 
+// --- the streaming window's row gather -----------------------------------------
+//
+// When the fleet changes between daemon cycles, the window's two int8 rings
+// [rows, K] are re-keyed (engine.rekey_window). The rows out come as runs:
+// rows from run_out[k] on take the old rows from run_src[k] on, or are all
+// INVALID_Q (-1) where run_src[k] < 0, chips new to the window. A cycle's
+// few thousand changes give a few thousand runs, some 30 KB up from the host
+// where a row index a row would be a megabyte. The reference keeps a window
+// per fleet and starts over when the fleet changes, so no Pallas kernel does
+// this. It is a copy bound by bandwidth: the carried rows of both rings read
+// once, both rings written once (about 12.6 MB at 263,000 rows of K = 12).
+// One launch moves both rings: a thread a word of a row, 4-byte words where
+// K and the rings allow, else bytes, so neighbouring threads write
+// neighbouring words and the gather of a row's words reads one line; each
+// thread finds its row's run by a binary search over the run starts, which
+// stay in L1 and L2.
+
+constexpr int kGatherThreads = 256;
+
+template <typename W>
+__global__ void __launch_bounds__(kGatherThreads)
+window_gather_kernel(const W* __restrict__ tc_in, const W* __restrict__ hbm_in,
+                     const int32_t* __restrict__ run_out, const int32_t* __restrict__ run_src,
+                     int64_t runs, W* __restrict__ tc_out, W* __restrict__ hbm_out,
+                     int64_t words, int64_t row_words) {
+    const int64_t t = int64_t(blockIdx.x) * kGatherThreads + threadIdx.x;
+    if (t >= words) return;
+    const int64_t row = t / row_words;
+    int64_t lo = 0, hi = runs - 1;  // the last run that starts at or before row
+    while (lo < hi) {
+        const int64_t mid = (lo + hi + 1) / 2;
+        if (__ldg(run_out + mid) <= row) lo = mid;
+        else hi = mid - 1;
+    }
+    const int32_t src = __ldg(run_src + lo);
+    if (src < 0) {
+        tc_out[t] = W(~W(0));  // every byte INVALID_Q
+        hbm_out[t] = W(~W(0));
+    } else {
+        const int64_t from = (int64_t(src) + row - __ldg(run_out + lo)) * row_words +
+                             (t - row * row_words);
+        tc_out[t] = __ldg(tc_in + from);
+        hbm_out[t] = __ldg(hbm_in + from);
+    }
+}
+
+template <typename W>
+void launch_window_gather(const void* tc_in, const void* hbm_in, const int32_t* run_out,
+                          const int32_t* run_src, int64_t runs, void* tc_out, void* hbm_out,
+                          int64_t rows, int64_t row_words, cudaStream_t stream) {
+    const int64_t words = rows * row_words;
+    window_gather_kernel<W><<<unsigned((words + kGatherThreads - 1) / kGatherThreads),
+                              kGatherThreads, 0, stream>>>(
+        static_cast<const W*>(tc_in), static_cast<const W*>(hbm_in), run_out, run_src, runs,
+        static_cast<W*>(tc_out), static_cast<W*>(hbm_out), words, row_words);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1262,6 +1320,30 @@ int tp_slice_scatter(const void* candidate, const void* ids, void* marks, void* 
         launch_marks<int64_t>(c, ids, m, num_chips, num_slices, s);
     slice_verdict_kernel<<<unsigned(scatter_blocks(num_slices)), kScatterThreads, 0, s>>>(
         reinterpret_cast<const uint16_t*>(m), static_cast<uint8_t*>(out), num_slices);
+    return int(cudaGetLastError());
+}
+
+// The window's row gather: rows out rows of row_bytes (K) each, given by
+// runs, an int32 [2, num_runs] array of run starts (the first 0, ascending)
+// and their first old rows (-1: new rows). Takes rows >= 1 and num_runs >= 1
+// (the wrapper launches nothing otherwise); 4-byte words where row_bytes and
+// every pointer allow.
+int tp_window_gather(const void* tc_in, const void* hbm_in, const void* runs, int64_t num_runs,
+                     void* tc_out, void* hbm_out, int64_t rows, int64_t row_bytes, void* stream) {
+    if (rows < 1 || row_bytes < 1 || num_runs < 1 ||
+        (rows * row_bytes + kGatherThreads - 1) / kGatherThreads > 0x7fffffff)
+        return int(cudaErrorInvalidValue);
+    const auto run_out = static_cast<const int32_t*>(runs);
+    const auto run_src = run_out + num_runs;
+    const auto s = static_cast<cudaStream_t>(stream);
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(tc_in) | reinterpret_cast<uintptr_t>(hbm_in) |
+                            reinterpret_cast<uintptr_t>(tc_out) | reinterpret_cast<uintptr_t>(hbm_out);
+    if (row_bytes % 4 == 0 && bases % 4 == 0)
+        launch_window_gather<uint32_t>(tc_in, hbm_in, run_out, run_src, num_runs, tc_out, hbm_out,
+                                       rows, row_bytes / 4, s);
+    else
+        launch_window_gather<uint8_t>(tc_in, hbm_in, run_out, run_src, num_runs, tc_out, hbm_out,
+                                      rows, row_bytes, s);
     return int(cudaGetLastError());
 }
 

@@ -27,7 +27,7 @@ as the reference's clamping gather reads them. The kernel wrappers stay
 strict.
 
 Each entry is one span of ``obs`` (``engine.upload``, ``.quantize``,
-``.update``, ``.params``, ``.bounds``, ``.evaluate``); inside
+``.update``, ``.params``, ``.bounds``, ``.evaluate``, ``.rekey``); inside
 ``evaluate_fleet`` and ``_q`` the scatter reduction is one more
 (``engine.reduce``). Each copy between the host and a device goes through
 ``obs.to_device`` or ``obs.to_host``, which count its bytes.
@@ -36,13 +36,14 @@ Each entry is one span of ``obs`` (``engine.upload``, ``.quantize``,
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import hostlib, obs
 from .kernels import (_FLT_MIN, chip_pass, chip_pass_q, flush_subnormal, normalize_slice_ids,
-                      slice_gate, slice_scatter)
+                      slice_gate, slice_scatter, window_gather)
 # the sharded paths' per-rank counts
 from .kernels import slice_counts, slice_counts_contiguous  # noqa: F401
 
@@ -393,7 +394,10 @@ def evaluate_fleet_qu(tc_q, hbm_q, pod_age_s, params_arr_q, chips_per_slice: int
 # Eviction is the overwrite of the oldest column. An unfilled or all-invalid
 # chunk has maximum -1, "no data", so partial windows and scrape gaps need
 # no special case. The rings stay row-major [C, K], the layout the int8
-# kernel reads, and are written one column at a time.
+# kernel reads, and are written one column at a time. Where the fleet
+# changes from cycle to cycle, rekey_window carries the rows by chip key:
+# this cycle's chips first, then rows kept for absent chips, whose column
+# update_window_ writes as no data; the evaluations read the first rows.
 
 
 def init_window(num_chips: int, num_chunks: int, device="cuda"):
@@ -431,13 +435,26 @@ def update_window_(state, tc_q_new, hbm_q_new):
     The cursor follows the reference's dynamic_update_slice, on the device:
     column clamp(c + K*(c < 0), 0, K-1), which is clamp(c, -K, K-1) mod K,
     and next cursor (c + 1) mod K, both Python-style.
+
+    Rings with more rows than the new samples (rekey_window's: rows kept
+    for chips absent this cycle follow the present ones) get INVALID_Q in
+    the column of those rows: the cycle brought them no data.
     """
     tc_ring, hbm_ring, cursor = state
     num_chunks = tc_ring.shape[1]
+    present = tc_q_new.shape[0]
+    if present > tc_ring.shape[0]:
+        raise ValueError(f"{present} rows of new samples for a window of "
+                         f"{tc_ring.shape[0]} rows")
     cursor = obs.to_device(torch.as_tensor(cursor, dtype=torch.int32), tc_ring.device)
     column = cursor.view(1).long().clamp_(-num_chunks, num_chunks - 1).remainder_(num_chunks)
-    tc_ring.index_copy_(1, column, tc_q_new.amax(dim=1, keepdim=True))
-    hbm_ring.index_copy_(1, column, hbm_q_new.amax(dim=1, keepdim=True))
+    if present == tc_ring.shape[0]:
+        tc_ring.index_copy_(1, column, tc_q_new.amax(dim=1, keepdim=True))
+        hbm_ring.index_copy_(1, column, hbm_q_new.amax(dim=1, keepdim=True))
+    else:
+        for ring, new in ((tc_ring, tc_q_new), (hbm_ring, hbm_q_new)):
+            ring[:present].index_copy_(1, column, new.amax(dim=1, keepdim=True))
+            ring[present:].index_fill_(1, column, INVALID_Q)
     return tc_ring, hbm_ring, (cursor + 1) % num_chunks
 
 
@@ -447,18 +464,189 @@ def evaluate_window_qc(state, pod_age_s, bounds, params_arr_q):
 
     The ring of chunk maxima is a valid [C, K] sample tensor for the qc
     evaluator: the max over chunk maxima is the max over every sample in
-    the window, and all-sentinel rows stay non-candidates.
+    the window, and all-sentinel rows stay non-candidates. Rings with more
+    rows than ``pod_age_s`` (rekey_window's) are judged on their first
+    rows, this cycle's chips, a view of the row-major rings.
     """
-    tc_ring, hbm_ring, _ = state
+    tc_ring, hbm_ring = _present_rows(state, pod_age_s)
     return evaluate_fleet_qc(tc_ring, hbm_ring, pod_age_s, bounds, params_arr_q)
 
 
 @obs.spanned("engine.evaluate")
 def evaluate_window_qu(state, pod_age_s, params_arr_q, chips_per_slice: int):
     """evaluate_window_qc for uniform fleets (the reshape reduction)."""
-    tc_ring, hbm_ring, _ = state
+    tc_ring, hbm_ring = _present_rows(state, pod_age_s)
     return evaluate_fleet_qu(tc_ring, hbm_ring, pod_age_s, params_arr_q,
                              chips_per_slice)
+
+
+def _present_rows(state, pod_age_s):
+    """The rings' rows of the chips that ``pod_age_s`` has, the first ones."""
+    tc_ring, hbm_ring, _ = state
+    present = pod_age_s.shape[0]
+    if present < tc_ring.shape[0]:
+        return tc_ring[:present], hbm_ring[:present]
+    return tc_ring, hbm_ring
+
+
+# --- a fleet that changes between cycles: the window's rows keyed by chip ------
+
+
+class WindowRows(NamedTuple):
+    """Which chip each row of a streaming window holds: the chips of the
+    last cycle first, in its order, then rows kept for chips absent then.
+    Keys are int64, one chip each; the cycles are the caller's numbers."""
+
+    keys: np.ndarray        # int64 [C]: the last cycle's chips, the first rows
+    cycle: int              # the cycle they were present in
+    kept_keys: np.ndarray   # int64 [R - C]: the kept rows' chips
+    kept_seen: np.ndarray   # int64 [R - C]: the last cycle each was present in
+
+    @classmethod
+    def of(cls, keys, cycle: int) -> "WindowRows":
+        """The rows of a window whose rows are ``keys``' chips alone, as
+        ``init_window(len(keys), K)`` starts one, present in ``cycle``."""
+        none = np.zeros(0, dtype=np.int64)
+        return cls(np.ascontiguousarray(keys, dtype=np.int64), int(cycle), none, none)
+
+    def all_keys(self) -> np.ndarray:
+        return np.concatenate([self.keys, self.kept_keys])
+
+    def all_seen(self) -> np.ndarray:
+        return np.concatenate([np.full(len(self.keys), self.cycle, dtype=np.int64),
+                               self.kept_seen])
+
+
+class Rekeyed(NamedTuple):
+    """rekey_window's result."""
+
+    state: tuple        # (tc_ring, hbm_ring, cursor): this cycle's chips, then kept rows
+    rows: WindowRows    # the chip of each row
+    present: int        # this cycle's chips, the first rows
+
+
+@obs.spanned("engine.rekey")
+def rekey_window(state, rows: WindowRows, keys, cycle: int) -> Rekeyed:
+    """Carry the streaming window's rows to this cycle's chips, by chip key.
+
+    ``state``'s rings hold one row a chip of ``rows`` (WindowRows: the
+    rows' int64 keys and the cycle each was last present in); ``keys``
+    (int64 [C], unique) are this cycle's chips in the order their samples
+    come (as ``analyze.load_fleet`` gives them), and ``cycle`` this cycle's
+    number. At cycle i a chip's window is the chunk maxima of cycles
+    max(0, i-K+1) .. i, a cycle in which its key was absent counting as a
+    chunk with no data. So the result's rings hold, in this order:
+
+    - this cycle's chips, in ``keys``' order: a key among the rows keeps its
+      row; a new key gets K chunks of no data;
+    - the rows of absent keys that may still hold data (absent fewer than
+      K cycles), in their order: a chip that misses a scrape comes back with
+      its history, and is not judged on its one chunk;
+    - no row absent K cycles or more: it holds only chunks of no data.
+
+    update_window_ then writes the present rows from this cycle's samples
+    and the kept rows as no data, and evaluate_window_qc judges the first
+    C rows, over this cycle's slices alone; nothing else changes.
+
+    The join runs on the host (``csrc/window_keys.cpp``, or the plain
+    version ``rekey_plain`` where the library is missing or refuses the
+    input); the rows move on the device in one launch of
+    ``kernels.window_gather`` after one upload of the rows' runs
+    (``gather_runs``: a few thousand a cycle where the fleet changes by a
+    few thousand chips, where a row index a row would be a megabyte).
+    Where every row stays in place and none comes or goes, it returns
+    ``state`` as it is, with no device operation and no copy. It never
+    copies from the device, and keeps ``keys`` as the rows' first keys
+    without a copy. The ``obs`` counters ``window_rows_new``, ``_retained``,
+    ``_dropped`` and ``_moved`` (rows that changed place) count its rows.
+    """
+    tc_ring, hbm_ring, cursor = state
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    rows = WindowRows(np.ascontiguousarray(rows.keys, dtype=np.int64), int(rows.cycle),
+                      np.ascontiguousarray(rows.kept_keys, dtype=np.int64),
+                      np.ascontiguousarray(rows.kept_seen, dtype=np.int64))
+    total = len(rows.keys) + len(rows.kept_keys)
+    if (tc_ring.dim() != 2 or tc_ring.shape[0] != total or keys.ndim != 1
+            or rows.keys.ndim != 1 or rows.kept_seen.shape != rows.kept_keys.shape):
+        raise ValueError(f"rekey_window takes rings [R, K] with R rows of keys, and [C] keys; "
+                         f"got rings {tuple(tc_ring.shape)}, {len(rows.keys)} + "
+                         f"{rows.kept_keys.shape} rows, keys {keys.shape}")
+    num_chunks = tc_ring.shape[1]
+    joined = _rekey_native(rows, keys, int(cycle), num_chunks)
+    if joined is None:
+        joined = rekey_plain(rows, keys, int(cycle), num_chunks)
+    runs, kept_keys, kept_seen, (new, retained, dropped, moved) = joined
+    for name, n in (("new", new), ("retained", retained), ("dropped", dropped),
+                    ("moved", moved)):
+        obs.count(f"window_rows_{name}", n)
+    out = WindowRows(keys, int(cycle), kept_keys, kept_seen)
+    rows_out = len(keys) + len(kept_keys)
+    if rows_out == total and not (new or dropped or moved):
+        return Rekeyed(state, out, len(keys))
+    tc_ring, hbm_ring = window_gather(
+        tc_ring, hbm_ring, obs.to_device(torch.from_numpy(runs), tc_ring.device), rows_out)
+    return Rekeyed((tc_ring, hbm_ring, cursor), out, len(keys))
+
+
+def gather_runs(gather) -> np.ndarray:
+    """A row gather (int [N]: the old row each row out takes, -1 for a new
+    one) as its maximal runs, int32 [2, M]: rows out from ``[0, m]`` on take
+    old rows from ``[1, m]`` on, or are new where that is -1."""
+    gather = np.asarray(gather, dtype=np.int64)
+    if not len(gather):
+        return np.zeros((2, 0), dtype=np.int32)
+    prev, cur = gather[:-1], gather[1:]
+    goes_on = np.where(cur < 0, prev < 0, (prev >= 0) & (cur == prev + 1))
+    starts = np.flatnonzero(np.concatenate([[True], ~goes_on]))
+    return np.stack([starts, gather[starts]]).astype(np.int32)
+
+
+def rekey_plain(rows: WindowRows, keys, cycle: int, num_chunks: int):
+    """rekey_window's join in plain NumPy: a sort of the rows' keys and a
+    binary search a chip. Returns (the rows' runs, ``gather_runs``; the kept
+    rows' keys and last-seen cycles; (new, retained, dropped, moved));
+    raises ValueError where a key repeats."""
+    row_keys, row_seen = rows.all_keys(), rows.all_seen()
+    if np.unique(keys).size != keys.size:
+        raise ValueError("this cycle's chip keys repeat: the window keys each row by one chip")
+    if np.unique(row_keys).size != row_keys.size:
+        raise ValueError("the window's row keys repeat")
+    hit = np.zeros(len(keys), dtype=bool)
+    found = np.full(len(keys), -1, dtype=np.int64)
+    if len(row_keys):
+        order = np.argsort(row_keys, kind="stable")
+        at = np.minimum(np.searchsorted(row_keys[order], keys), len(row_keys) - 1)
+        hit = row_keys[order][at] == keys
+        found[hit] = order[at][hit]
+    carried = np.zeros(len(row_keys), dtype=bool)
+    carried[found[hit]] = True
+    absent = np.flatnonzero(~carried)
+    kept = absent[cycle - row_seen[absent] < num_chunks]
+    gather = np.concatenate([found, kept]).astype(np.int32)
+    moved = int(((gather >= 0) & (gather != np.arange(len(gather)))).sum())
+    return (gather_runs(gather), row_keys[kept], row_seen[kept],
+            (int((~hit).sum()), len(kept), len(absent) - len(kept), moved))
+
+
+def _rekey_native(rows: WindowRows, keys, cycle: int, num_chunks: int):
+    """rekey_plain's result from the native join, or None where the host
+    library is missing or refuses the input (a repeated key)."""
+    lib = hostlib.load()
+    most = len(rows.keys) + len(rows.kept_keys)
+    if lib is None or len(keys) + most >= _INT32_LIMIT:
+        return None
+    runs = np.empty((2, len(keys) + most), dtype=np.int32)
+    kept_keys = np.empty(most, dtype=np.int64)
+    kept_seen = np.empty(most, dtype=np.int64)
+    counts = np.zeros(6, dtype=np.int64)
+    if lib.tp_rekey(rows.keys.ctypes.data, len(rows.keys), rows.cycle, rows.kept_keys.ctypes.data,
+                    rows.kept_seen.ctypes.data, len(rows.kept_keys), keys.ctypes.data, len(keys),
+                    cycle, num_chunks, runs[0].ctypes.data, runs[1].ctypes.data,
+                    kept_keys.ctypes.data, kept_seen.ctypes.data, counts.ctypes.data) != 0:
+        return None
+    kept, m = int(counts[2]), int(counts[5])
+    return (np.ascontiguousarray(runs[:, :m]), kept_keys[:kept], kept_seen[:kept],
+            tuple(int(x) for x in counts[1:5]))
 
 
 @obs.spanned("engine.upload")

@@ -23,7 +23,11 @@ each row to one verdict: a bandwidth-bound pass with no tensor-core work.
 - ``slice_scatter`` (chip verdicts + slice ids in any order) launches
   ``tp_slice_scatter``, which has no Pallas counterpart either: it is the
   reference's ``segment_sum`` reduction of ``evaluate_fleet`` and ``_q``,
-  with two idempotent marks a slice in place of two counts.
+  with two idempotent marks a slice in place of two counts;
+- ``window_gather`` (the streaming window's two int8 rings + a row gather)
+  launches ``tp_window_gather``, which has no Pallas counterpart: it carries
+  the window's rows to a changed fleet's order (``engine.rekey_window``),
+  where the reference starts the window over.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. The plain versions apply the
@@ -49,7 +53,8 @@ from . import _build
 
 _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
-LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0, "slice_scatter": 0}
+LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0, "slice_scatter": 0,
+            "window_gather": 0}
 DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
 F32_DESIGN_LAUNCHES = {"groups": 0, "long": 0}  # chip_pass's, by design
 
@@ -527,3 +532,62 @@ def _launch_scatter(candidate, slice_id, num_slices: int) -> torch.Tensor:
     _build.check(status, "tp_slice_scatter")
     LAUNCHES["slice_scatter"] += 1
     return out
+
+
+# --- the streaming window's row gather ----------------------------------------
+
+_INVALID_Q = -1  # engine.INVALID_Q: a chunk with no valid sample
+
+
+def window_gather_plain(tc_ring, hbm_ring, runs, rows: int):
+    """Plain PyTorch version of the row gather: (tc, hbm) int8 [rows, K],
+    the rows out from ``runs[0, m]`` on taking the rings' rows from
+    ``runs[1, m]`` on, or all INVALID_Q where that is negative."""
+    starts, srcs = runs[0].long(), runs[1].long()
+    lengths = torch.diff(starts, append=starts.new_tensor([rows]))
+    offset = torch.arange(rows, device=runs.device) - starts.repeat_interleave(lengths)
+    base = srcs.repeat_interleave(lengths)
+    carried = base >= 0
+    src = (base + offset)[carried]
+    out = []
+    for ring in (tc_ring, hbm_ring):
+        new = torch.full((rows, ring.shape[1]), _INVALID_Q, dtype=torch.int8, device=ring.device)
+        new[carried] = ring[src]
+        out.append(new)
+    return tuple(out)
+
+
+def window_gather(tc_ring, hbm_ring, runs, rows: int):
+    """The window's rings re-keyed: (tc, hbm) int8 [rows, K], fresh tensors.
+
+    ``runs`` (int32 [2, M], ``engine.gather_runs``): the rows out from
+    ``runs[0, m]`` on (0 first, ascending) take the rings' rows from
+    ``runs[1, m]`` on, or are all INVALID_Q where it is negative (chips new
+    to the window). tc_ring, hbm_ring: int8 [R, K]. The kernel does not
+    check the runs against R; engine.rekey_window builds them so.
+    """
+    if tc_ring.dim() != 2:
+        raise ValueError(f"rings must be 2-D [rows, chunks], got {tuple(tc_ring.shape)}")
+    if runs.dim() != 2 or runs.shape[0] != 2:
+        raise ValueError(f"runs must be [2, M], got {tuple(runs.shape)}")
+    R, chunks = tc_ring.shape
+    device = _check({"tc_ring": (tc_ring, torch.int8, (R, chunks)),
+                     "hbm_ring": (hbm_ring, torch.int8, (R, chunks)),
+                     "runs": (runs, torch.int32, (2, runs.shape[1]))})
+    if rows and not runs.shape[1]:
+        raise ValueError("runs must cover the rows out")
+    if device.type == "cpu":
+        return window_gather_plain(tc_ring, hbm_ring, runs, rows)
+    tc_out = torch.empty((rows, chunks), dtype=torch.int8, device=device)
+    hbm_out = torch.empty_like(tc_out)
+    if not rows or not chunks:  # a grid of no blocks is a launch error
+        return tc_out, hbm_out
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tp_window_gather(tc_ring.data_ptr(), hbm_ring.data_ptr(), runs.data_ptr(),
+                                      runs.shape[1], tc_out.data_ptr(), hbm_out.data_ptr(), rows,
+                                      chunks, stream)
+    _build.check(status, "tp_window_gather")
+    LAUNCHES["window_gather"] += 1
+    return tc_out, hbm_out
