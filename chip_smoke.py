@@ -12,7 +12,8 @@ exits non-zero on failure:
    row design at T = 12, and its registers and spills over every T it has a
    kernel for; the f32 pass's group design for each samples-a-lane it has a
    kernel for, and its long-row design for each samples a lane a chunk;
-   the slice gate; the scatter reduction's two kernels), and print the
+   the slice gate; the scatter reduction's two kernels; the row gather;
+   the key join's three kernels), and print the
    card's name and power limit;
 2. ("phase 4" in the log, as the records cite it) time each kernel with CUDA
    events (median over many launches) beside its plain version and its
@@ -50,11 +51,16 @@ exits non-zero on failure:
    (260,000 chips in 23,149 groups, host order), 1,048,576 chips in 65,536
    shuffled slices, one slice of 1,048,576 chips idle but one, and
    1,048,576 one-chip slices (scatter_rows); the streaming window's row
-   gather (one launch moves both rings, the rows given as runs) warm and
-   cold beside its plain version, an empty kernel and its bound, at the
-   stream-260k-churn-k12 cell's shape (263,000 rows out of 263,000, 3,000 of
-   them new, the rest moved), at its burst (50,944 new) and at 1,048,576
-   rows (gather_rows);
+   gather (one launch moves both rings by a row index) warm and cold beside
+   its plain version (by the index's runs), an empty kernel and its bound,
+   at the stream-260k-churn-k12 cell's shape (263,000 rows out of 263,000,
+   3,000 of them new, the rest moved), at its burst (50,944 new) and at
+   1,048,576 rows (gather_rows); the window's key join (one call: a memset
+   and three kernels) warm and cold beside its bound and an empty kernel,
+   the host's joins it replaces (native and plain) and rekey_window on the
+   card on the host's clock with its device operations, at the cell's shape
+   (263,000 rows, 260,000 chips, 3,000 new in 1,500 places), its burst and
+   1,048,576 rows (join_rows);
    and the f32 designs for each T of f32_timing_t(C) at the three sizes
    (rows of 1 to 2,880 samples; the long-row design also at its other
    samples a lane), and where the plan's design was not the fastest.
@@ -68,8 +74,8 @@ XL times under "xl" (the int8 kernel also its T = 12 times under "window"
 and its sweep under "design_sweep", the f32 kernel its times at the dump's
 width and its sweep under "dump", the slice gate, which has no Pallas
 counterpart, its other fleets and sweep under "fleets", and the scatter
-reduction and the row gather, which have none either, their shapes under
-"fleets"); the line
+reduction, the row gather and the key join, which have none either, their
+shapes under "fleets"); the line
 before it is {"end_to_end": {...}}, the end-to-end times at both sizes; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -93,17 +99,18 @@ from tpu_pruner_torch.policy import (
     evaluate_fleet_c, evaluate_fleet_qc, evaluate_fleet_qu, evaluate_window_qc,
     evaluate_window_qu, init_window, make_example_fleet, quantize_fleet_inputs, slice_bounds,
     update_window, update_window_)
-from tpu_pruner_torch.policy.engine import gather_runs
+from tpu_pruner_torch.policy.engine import _rekey_native, rekey_plain, rekey_window
 from tpu_pruner_torch.policy.kernels import (
-    _F32_GROUPS_K, _F32_LONG_K, _Q_ROWS_T, F32_DESIGNS, PlanLong, PlanRows, _choose_plan_q,
-    _f32_plans, _launch_f32, _launch_q, _plan_q, _plan_q_rows, _sm_count, slice_gate,
-    slice_gate_plain, slice_scatter, slice_scatter_plain, window_gather, window_gather_plain)
+    _F32_GROUPS_K, _F32_LONG_K, _Q_ROWS_T, F32_DESIGNS, JOIN_COUNTS, CardRows, PlanLong, PlanRows,
+    _choose_plan_q, _f32_plans, _launch_f32, _launch_q, _plan_q, _plan_q_rows, _sm_count,
+    gather_runs, slice_gate, slice_gate_plain, slice_scatter, slice_scatter_plain, window_gather,
+    window_gather_plain, window_join)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_kernel_cases import (  # noqa: E402
     CHIPS, CHUNK_SAMPLES, CPS, DRYRUN_CHIPS, DUMP_SAMPLES, MIXED, SAMPLES, SLICES,
-    WINDOW_CHUNKS, XL_CHIPS, XL_SLICES, f32_expected_design, gate_fleet, mixed_sizes,
-    launch_counts, rows_taken, scatter_fleets, seeded_fleet)
+    WINDOW_CHUNKS, XL_CHIPS, XL_SLICES, f32_expected_design, gate_fleet, join_fleet,
+    mixed_sizes, launch_counts, rows_taken, scatter_fleets, seeded_fleet)
 
 SCALAR_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores (NVIDIA data sheet)
 # Scalar operations per (chip, sample): f32 pass -- per array a flush
@@ -123,7 +130,10 @@ KERNEL_SYMBOLS = {"chip_pass_q": "chip_pass_q_kernel",
                   "slice_scatter marks, int64 ids": "slice_marks_kernelIlE",
                   "slice_scatter verdicts": "slice_verdict_kernel",
                   "window_gather, 4-byte words": "window_gather_kernelIjE",
-                  "window_gather, bytes": "window_gather_kernelIhE"}
+                  "window_gather, bytes": "window_gather_kernelIhE",
+                  "window_join, build": "join_build_kernel",
+                  "window_join, probe": "join_probe_kernel",
+                  "window_join, compaction": "join_compact_kernel"}
 # templated kernels: name -> (symbol pattern, the instantiations the plan uses)
 INSTANTIATIONS = {
     "chip_pass_q, row design, T": (r"chip_pass_q_rows_kernelILi(\d+)E", _Q_ROWS_T),
@@ -598,19 +608,21 @@ GATHER_REPLACES = ("none: the reference starts its window over when the fleet ch
 
 
 def gather_timing(what: str, rings, gather, flush: torch.Tensor) -> dict:
-    """The row gather of both rings (``gather`` as its runs), first held
-    against the plain version: warm and cold beside the plain version, an
-    empty kernel and the bound, which counts the runs and the carried rows
-    read once and both rings written once."""
+    """The row gather of both rings by a row index (``gather``), first held
+    against the plain version, which moves them by the index's runs: warm
+    and cold beside the plain version, an empty kernel and the bound, which
+    counts the index and the carried rows read once and both rings written
+    once."""
     rows, chunks = gather.numel(), rings[0].shape[1]
+    index = gather.to(torch.int32)
     runs = torch.from_numpy(gather_runs(gather.cpu().numpy())).to(gather.device)
-    check(all(torch.equal(a, b) for a, b in zip(window_gather(*rings, runs, rows),
+    check(all(torch.equal(a, b) for a, b in zip(window_gather(*rings, index),
                                                 window_gather_plain(*rings, runs, rows))),
           f"window_gather differs from the plain version at {what}")
-    ms = time_fn(lambda: window_gather(*rings, runs, rows))
-    ms_cold = time_fn(lambda: window_gather(*rings, runs, rows), flush)
+    ms = time_fn(lambda: window_gather(*rings, index))
+    ms_cold = time_fn(lambda: window_gather(*rings, index), flush)
     carried = int((gather >= 0).sum())
-    nbytes = runs.nbytes + 2 * carried * chunks + 2 * rows * chunks
+    nbytes = index.nbytes + 2 * carried * chunks + 2 * rows * chunks
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     plain_ms = time_fn(lambda: window_gather_plain(*rings, runs, rows))
     plain_cold = time_fn(lambda: window_gather_plain(*rings, runs, rows), flush)
@@ -644,6 +656,113 @@ def gather_rows(dev, flush: torch.Tensor) -> dict:
         at = torch.randperm(rows - new, generator=g, device=dev)[:places]
         gather[(at[:, None] + torch.arange(new, device=dev)).view(-1)] = -1
         out[what] = gather_timing(what, rings, gather, flush)
+    return out
+
+
+JOIN_REPLACES = ("none: the reference starts its window over when the fleet changes "
+                 "(tpu_pruner/analyze.py:194); on the card's path it replaces the host's "
+                 "join, tp_rekey in tpu_pruner_torch/csrc/window_keys.cpp")
+
+
+def host_ms(fn, reps: int = 30) -> float:
+    """Median host wall time of fn (which ends in its own wait, if any) over
+    reps calls, after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def join_timing(what: str, dev, rows, keys, cycle: int, K: int, flush: torch.Tensor) -> dict:
+    """The window's key join on the card (one call: the keys' copy up from
+    pinned memory, a memset and three kernels) at one shape, first held
+    against the plain version (the kept rows, the counts, the keys left on
+    the card and the row index's runs): warm and cold beside an empty kernel
+    and the bound; the host's joins it replaces (the native join and the
+    plain version, on the host's clock); and rekey_window on the card on the
+    host's clock, from the rows' keys on the card, with its wait and its
+    gather, beside the keys' upload alone, pageable and through pinned
+    memory, with its device operations."""
+    R, C = len(rows.keys) + len(rows.kept_keys), len(keys)
+    on_card = CardRows(torch.from_numpy(np.concatenate([rows.keys, rows.kept_keys,
+                                                        rows.kept_seen])).to(dev),
+                       len(rows.keys), len(rows.kept_keys), R)
+    runs, kept_keys, kept_seen, counts = rekey_plain(rows, keys, cycle, K)
+    kept = len(kept_keys)
+
+    def join():
+        return window_join(on_card, keys, rows.cycle, cycle, K)
+
+    joined = join()
+    torch.cuda.synchronize()
+    host = joined.host.numpy()
+    check(int(host[0]) == 0 and tuple(int(x) for x in host[1:5]) == counts
+          and np.array_equal(host[JOIN_COUNTS:JOIN_COUNTS + kept], kept_keys)
+          and np.array_equal(host[JOIN_COUNTS + R:JOIN_COUNTS + R + kept], kept_seen)
+          and np.array_equal(joined.keys[:C].cpu().numpy(), keys)
+          and np.array_equal(joined.keys[C:C + kept].cpu().numpy(), kept_keys)
+          and np.array_equal(joined.keys[C + R:C + R + kept].cpu().numpy(), kept_seen)
+          and np.array_equal(gather_runs(joined.index[:C + kept].cpu().numpy()), runs),
+          f"window_join differs from the plain version at {what}")
+    ms = time_fn(join)
+    ms_cold = time_fn(join, flush)
+    # the keys and kept rows' cycles read once, this cycle's keys, the index
+    # and the kept rows written once (the keys and kept rows on the card,
+    # the kept rows and counts on the host)
+    nbytes = (8 * (R + len(rows.kept_seen) + C) + 8 * C + 4 * (C + kept) + 2 * 16 * kept
+              + 8 * JOIN_COUNTS)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    native_ms = host_ms(lambda: _rekey_native(rows, keys, cycle, K))
+    plain_ms = host_ms(lambda: rekey_plain(rows, keys, cycle, K), 10)
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), 200)  # an empty kernel, timed alike
+    g = torch.Generator(device=dev)
+    g.manual_seed(R)
+    state = (*(torch.randint(-1, 101, (R, K), generator=g, device=dev, dtype=torch.int8)
+               for _ in range(2)), torch.zeros((), dtype=torch.int32, device=dev))
+    on_rows = rows._replace(on_card=on_card)  # the rows' keys on the card, as a cycle finds them
+
+    def carry():
+        rekey_window(state, on_rows, keys, cycle)
+        torch.cuda.synchronize()
+
+    carry_ms = host_ms(carry)
+    upload_ms = host_ms(lambda: (torch.from_numpy(keys).to(dev), torch.cuda.synchronize()))
+    pinned = torch.from_numpy(keys).pin_memory()
+    pinned_ms = host_ms(lambda: (pinned.numpy().__setitem__(slice(None), keys),
+                                 pinned.to(dev, non_blocking=True), torch.cuda.synchronize()))
+    ops = launch_counts(f"{what}: rekey_window", carry)
+    log(f"phase 4: {what}: window_join {ms:.4f} ms warm, {ms_cold:.4f} ms cold, bound "
+        f"{bound:.5f} ms ({nbytes} bytes, {bound / ms:.3f} of it warm); an empty kernel "
+        f"{floor_ms:.4f} ms; on the host: the native join {native_ms:.4f} ms, the plain "
+        f"version {plain_ms:.4f} ms; rekey_window on the card {carry_ms:.4f} ms on the host's "
+        f"clock; the keys' upload alone {upload_ms:.4f} ms pageable, {pinned_ms:.4f} ms through "
+        f"pinned memory ({kept} rows kept, {counts[0]} new, {counts[3]} moved)")
+    return {"name": "window_join", "route": "cuda", "source": SOURCE,
+            "replaces": JOIN_REPLACES, "pallas_counterpart": None, "ms": ms,
+            "ms_cold": ms_cold, "plain_ms": plain_ms, "plain_ms_cold": None,
+            "plain_on": "host", "native_ms": native_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+            "launch_floor_ms": floor_ms, "rekey_window_ms": carry_ms,
+            "upload_ms": upload_ms, "pinned_upload_ms": pinned_ms, "device_ops": ops,
+            "rows": R, "chips": C, "kept": kept, "counts": counts, "max_abs_err": 0}
+
+
+def join_rows(dev, flush: torch.Tensor) -> dict:
+    """Phase 4's key join (join_fleet): the churn cell's shape (263,000
+    rows, 260,000 chips, 3,000 of them new in 1,500 places), its burst
+    (50,944 new in one run) and 1,048,576 rows."""
+    rng = np.random.default_rng(8642)
+    out = {}
+    for what, shape in (
+            ("263,000 rows, 260,000 chips, 3,000 new", (263_000, 6_000, 1_000, 1_000, 3_000,
+                                                        1_500)),
+            ("263,000 rows, 50,944 new (the burst)", (263_000, 6_000, 50_944, 1_000, 50_944,
+                                                      1)),
+            ("1,048,576 rows, 12,000 new", (1_048_576, 24_576, 4_000, 4_000, 12_000, 6_000))):
+        out[what] = join_timing(what, dev, *join_fleet(rng, *shape), flush)
     return out
 
 
@@ -771,6 +890,8 @@ def main() -> int:
     rows["slice_scatter"] = {**next(iter(scatter.values())), "fleets": scatter}
     gathers = gather_rows(dev, flush)
     rows["window_gather"] = {**next(iter(gathers.values())), "fleets": gathers}
+    joins = join_rows(dev, flush)
+    rows["window_join"] = {**next(iter(joins.values())), "fleets": joins}
     print(json.dumps({"end_to_end": {f"{CHIPS} chips": end_to_end,
                                      f"{XL_CHIPS} chips": xl_end_to_end}}))
     print(json.dumps({"kernels": list(rows.values())}))

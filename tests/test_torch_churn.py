@@ -17,6 +17,7 @@ only PyTorch:
 import contextlib
 import io
 import json
+import re
 import shutil
 from pathlib import Path
 
@@ -28,11 +29,13 @@ from port_bench import churn, run, work, work_churn
 from port_bench.cell import load_module
 from port_bench.reference import churn as ref
 from port_bench.trace import Trace
-from tpu_pruner_torch import analyze, obs
+from torch_kernel_cases import join_cases
+from tpu_pruner_torch import analyze, hostlib, obs
 from tpu_pruner_torch import policy as tp
-from tpu_pruner_torch.policy import engine
+from tpu_pruner_torch.policy import engine, kernels
 
 ROOT = Path(__file__).resolve().parents[1]
+JOIN_CASES = join_cases()
 CELL = "stream-260k-churn-k12"
 MIX = json.loads((ROOT / "port_bench" / "traffic" / "stream-churn-k12.json").read_text())
 CONFIG = json.loads((ROOT / "port_bench" / "configs" / "gke-65k-jobset-churn.json").read_text())
@@ -106,6 +109,7 @@ def test_rekey_matches_the_reference_every_cycle(small):
     seq = pool + pool
     window = Window()
     seen = set()
+    joins = ("rekey_card", "rekey_native", "rekey_plain")
     for i, c in enumerate(seq):
         native = engine._rekey_native(window.rows, c.keys, i, K)
         plain = engine.rekey_plain(window.rows, c.keys, i, K)
@@ -113,7 +117,10 @@ def test_rekey_matches_the_reference_every_cycle(small):
             np.testing.assert_array_equal(a, b, err_msg=f"cycle {i}")
         assert native[3] == plain[3], i
         counts = dict(zip(("new", "retained", "dropped", "moved"), native[3]))
+        before = [obs.counts[k] for k in joins]
         v, cand, r = window.cycle(i, c.keys, c.tc, c.hbm, c.valid, c.age, c.slice_id, c.slices)
+        # CPU rings: the native join answers every call, the card's none
+        assert [obs.counts[k] - n for k, n in zip(joins, before)] == [0, 1, 0], i
         want_v, want_c = reference(seq, i)
         np.testing.assert_array_equal(v, want_v, err_msg=f"cycle {i}")
         np.testing.assert_array_equal(cand, want_c, err_msg=f"cycle {i}")
@@ -151,7 +158,9 @@ def test_unchanged_keys_give_the_same_rings_with_no_operation():
         r = tp.rekey_window(state, rows, keys.copy(), 5)
     assert r.state is state and r.present == 6
     assert not [e.name for e in prof.events() if e.name.startswith("aten::")]
-    assert {k: obs.counts[k] - before[k] for k in before} == dict.fromkeys(before, 0)
+    joined = "rekey_native" if hostlib.load() is not None else "rekey_plain"
+    assert {k: obs.counts[k] - before[k] for k in before} == {**dict.fromkeys(before, 0),
+                                                              joined: 1}
     assert r.rows.cycle == 5 and np.array_equal(r.rows.keys, keys)
     # kept rows still within the window stay in place too
     state = tp.init_window(8, K, device="cpu")
@@ -217,11 +226,70 @@ def test_a_row_absent_k_cycles_is_dropped():
     assert cand[0]
 
 
+@pytest.mark.parametrize("case", [name for name, (rows, keys, cycle, k) in JOIN_CASES.items()
+                                  if not name.startswith("repeated")])
+def test_rekey_on_cpu_rings_matches_plain_at_the_joins_edges(case):
+    """The join's edge cases (tests/torch_kernel_cases.py, which the card's
+    join runs too) through rekey_window on CPU rings: the native join (or
+    the plain version without the library) answers, the card's never, and
+    the rings, kept rows and counts are rekey_plain's."""
+    rows, keys, cycle, k = JOIN_CASES[case]
+    total = len(rows.keys) + len(rows.kept_keys)
+    g = torch.Generator().manual_seed(total)
+    state = (*(torch.randint(-1, 100, (total, k), generator=g, dtype=torch.int8)
+               for _ in range(2)), torch.zeros((), dtype=torch.int32))
+    runs, kept_keys, kept_seen, counts = engine.rekey_plain(rows, keys, cycle, k)
+    before = dict(obs.counts)
+    r = tp.rekey_window(state, rows, keys, cycle)
+    grew = {name: obs.counts[name] - before[name] for name in before}
+    joined = "rekey_native" if hostlib.load() is not None else "rekey_plain"
+    assert grew["rekey_card"] == 0 and grew[joined] == 1
+    assert tuple(grew[f"window_rows_{n}"] for n in ("new", "retained", "dropped",
+                                                     "moved")) == counts
+    assert np.array_equal(r.rows.kept_keys, kept_keys)
+    assert np.array_equal(r.rows.kept_seen, kept_seen) and r.rows.on_card is None
+    want = kernels.window_gather_plain(*state[:2], torch.from_numpy(runs),
+                                       len(keys) + len(kept_keys))
+    assert all(torch.equal(a, b) for a, b in zip(r.state[:2], want))
+
+
+def test_join_constants_agree_with_the_kernel():
+    """kernels.JOIN_COUNTS is chip_pass.cu's kJoinCounts, the host words
+    before the kept rows, of which the join's last tile writes the five
+    that engine._rekey_card reads."""
+    src = (Path(kernels.__file__).parent / "csrc" / "chip_pass.cu").read_text()
+    found = re.search(r"constexpr int64_t kJoinCounts = (\d+);", src)
+    assert int(found.group(1)) == kernels.JOIN_COUNTS
+    written = [f"out.host[{i}] =" in src for i in range(kernels.JOIN_COUNTS)]
+    assert written == [True] * 5 + [False] * 3
+
+
+def test_join_and_gather_wrappers_check_their_inputs():
+    """window_join takes the rows' int64 keys on the card (no plain version
+    on the CPU: the engine joins there on the host) and 1-D keys;
+    window_gather a 1-D int32 index."""
+    k = torch.arange(6, dtype=torch.int64)
+    keys = np.arange(3)
+    with pytest.raises(ValueError, match="runs on the card"):
+        kernels.window_join(kernels.CardRows(k, 2, 2, 4), keys, 0, 1, 4)
+    with pytest.raises(TypeError, match="int64"):
+        kernels.window_join(kernels.CardRows(k.int(), 2, 2, 4), keys, 0, 1, 4)
+    with pytest.raises(TypeError, match="1-D"):
+        kernels.window_join(kernels.CardRows(k.view(2, 3), 2, 2, 4), keys, 0, 1, 4)
+    rings = torch.zeros((4, 3), dtype=torch.int8)
+    with pytest.raises(ValueError, match="1-D"):
+        kernels.window_gather(rings, rings, torch.zeros((2, 2), dtype=torch.int32))
+    with pytest.raises(TypeError, match="int32"):
+        kernels.window_gather(rings, rings, torch.zeros(2, dtype=torch.int64))
+
+
 def test_rekey_checks_its_inputs_and_refuses_repeated_keys():
     state = tp.init_window(3, K, device="cpu")
     rows = tp.WindowRows.of(np.array([1, 2, 3]), 0)
+    before = obs.counts["rekey_card"]
     with pytest.raises(ValueError, match="repeat"):
         tp.rekey_window(state, rows, np.array([4, 4, 5]), 1)
+    assert obs.counts["rekey_card"] == before
     with pytest.raises(ValueError, match="rings"):
         tp.rekey_window(tp.init_window(2, K, device="cpu"), rows, np.array([1]), 1)
     with pytest.raises(ValueError, match="repeat"):
@@ -253,10 +321,14 @@ def test_window_gather_plain_takes_the_runs_of_a_gather(gather):
     hbm = -tc
     runs = engine.gather_runs(gather)
     assert runs.shape[1] == {0: 0, 2: 1, 4: 4, 7: 4}[len(gather)]
-    out_tc, out_hbm = kernels.window_gather(tc, hbm, torch.from_numpy(runs), len(gather))
+    out_tc, out_hbm = kernels.window_gather_plain(tc, hbm, torch.from_numpy(runs), len(gather))
     assert out_tc.shape == out_hbm.shape == (len(gather), 3)
     assert out_tc.tolist() == [tc[s].tolist() if s >= 0 else [-1] * 3 for s in gather]
     assert out_hbm.tolist() == [hbm[s].tolist() if s >= 0 else [-1] * 3 for s in gather]
+    # the card's wrapper takes the row index itself; on the CPU, its runs
+    index = torch.tensor(gather, dtype=torch.int32)
+    assert all(torch.equal(a, b) for a, b in zip(kernels.window_gather(tc, hbm, index),
+                                                 (out_tc, out_hbm)))
 
 
 # --- the CLI: analyze --stream --follow-fleet ----------------------------------------

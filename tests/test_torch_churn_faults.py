@@ -98,8 +98,8 @@ def test_the_small_run_is_correct_unbroken(tree):
 
 
 @pytest.mark.parametrize("module, attr, fault", [
-    (tp, "rekey_window", forget_absent_rows), (engine, "window_gather", zero_for_new_rows),
-    (engine, "window_gather", shifted_by_one_row)],
+    (tp, "rekey_window", forget_absent_rows), (engine, "window_gather_plain", zero_for_new_rows),
+    (engine, "window_gather_plain", shifted_by_one_row)],
     ids=["forgets-absent-rows", "fills-new-rows-with-0", "join-shifted-by-one"])
 def test_a_broken_carry_is_not_correct(tree, monkeypatch, module, attr, fault):
     monkeypatch.setattr(module, attr, fault(getattr(module, attr)))

@@ -10,6 +10,7 @@ so it also runs on a machine that has only PyTorch:
 import contextlib
 import io
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -22,10 +23,10 @@ from torch_kernel_cases import (
     F32_LAYOUTS, F32_PARAMS, F32_SWEEP_T, GATE_OFFSETS, INT8_LAYOUTS, INT8_PARAMS, SAMPLES,
     SLICES, STREAM_CYCLES, SWEEP_C, SWEEP_T, WINDOW_CHUNKS, XL_CHIPS, XL_SLICES, adversarial_fleet,
     bounds_input_check, engine_input_check, f32_design_cases, f32_edge_fleet, f32_expected_design,
-    gate_cases, gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on, launch_counts,
-    q_input_cases, q_input_check, rows_taken, scatter_cases, scatter_fleets, seeded_fleet,
-    stream_chunks)
-from tpu_pruner_torch import analyze, entry
+    gate_cases, gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on, join_cases,
+    launch_counts, q_input_cases, q_input_check, rows_taken, scatter_cases, scatter_fleets,
+    seeded_fleet, stream_chunks)
+from tpu_pruner_torch import analyze, entry, obs
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
 from tpu_pruner_torch.policy import engine, kernels
@@ -35,6 +36,7 @@ INPUT_CASES = input_cases(5)
 Q_INPUT_CASES = q_input_cases(98)
 GATE_CASES = gate_cases(77, large=True)
 SCATTER_CASES = scatter_cases(78)
+JOIN_CASES = join_cases()
 # (chips, samples, slices) of the engine's paths: a small fleet, and the main
 # path's full width
 FLEETS = [pytest.param((4096, 64, 256), id="4096x64"),
@@ -480,9 +482,13 @@ def test_bad_bounds_on_card_match_cpu(cuda):
     assert torch.equal(kernels.slice_scatter(candidate, ids, S),
                        kernels.slice_scatter_plain(candidate, ids, S))
     rings = q[0][:64, :12].contiguous(), q[1][:64, :12].contiguous()
-    runs = torch.from_numpy(engine.gather_runs(np.arange(-1, 63))).to(cuda)
-    assert all(torch.equal(a, b) for a, b in zip(kernels.window_gather(*rings, runs, 64),
-                                                 kernels.window_gather_plain(*rings, runs, 64)))
+    rows, keys = tp.WindowRows.of(np.arange(64), 0), np.arange(-1, 63)
+    runs, kept, _, _ = engine.rekey_plain(rows, keys, 1, 12)
+    want = kernels.window_gather_plain(*(r.cpu() for r in rings), torch.from_numpy(runs),
+                                       64 + len(kept))
+    got = tp.rekey_window((*rings, torch.zeros((), dtype=torch.int32, device=cuda)), rows, keys,
+                          1).state
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got[:2], want))
     torch.cuda.synchronize()
     assert all(tp.LAUNCHES[k] == before[k] + 1 for k in tp.LAUNCHES), tp.LAUNCHES
 
@@ -824,10 +830,10 @@ def test_analyze_cli_dump_width_on_card(cuda, tmp_path):
     (1, 12, False, False), (1003, 12, False, True), (1003, 5, False, False),
     (1003, 12, True, False), (263_000, 12, False, False), (263_000, 12, False, True)])
 def test_window_gather_matches_plain(cuda, rows, chunks, view, scattered):
-    """The row gather against its plain version: 4-byte words (K = 12) and
-    bytes (K = 5, or rings off a 4-byte boundary), runs of moved rows with
-    new ones among them (the carry's shape) and a row index a row
-    (scattered), one launch each."""
+    """The row gather by a row index against the plain version by its runs:
+    4-byte words (K = 12) and bytes (K = 5, or rings off a 4-byte
+    boundary), runs of moved rows with new ones among them (the carry's
+    shape) and a row index a row (scattered), one launch each."""
     g = torch.Generator().manual_seed(rows + chunks)
     tc = torch.randint(-1, 128, (rows + 1, chunks), generator=g, dtype=torch.int8)
     hbm = torch.randint(-1, 128, (rows + 1, chunks), generator=g, dtype=torch.int8)
@@ -844,15 +850,67 @@ def test_window_gather_matches_plain(cuda, rows, chunks, view, scattered):
         gather[torch.randperm(out_rows, generator=g)[:out_rows // 50 + 1]] = -1
     runs = torch.from_numpy(engine.gather_runs(gather.numpy()))
     want = kernels.window_gather_plain(tc, hbm, runs, out_rows)
+    index = gather.to(torch.int32).to(cuda)
     before = kernels.LAUNCHES["window_gather"]
-    got = kernels.window_gather(tc.to(cuda), hbm.to(cuda), runs.to(cuda), out_rows)
+    got = kernels.window_gather(tc.to(cuda), hbm.to(cuda), index)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["window_gather"] == before + 1
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
     assert all(torch.equal(b, torch.where(gather[:, None] >= 0, r[gather.clamp(min=0)], -1).to(
         torch.int8)) for b, r in zip(want, (tc, hbm)))
-    empty = kernels.window_gather(tc.to(cuda), hbm.to(cuda), runs[:, :0].to(cuda), 0)
+    empty = kernels.window_gather(tc.to(cuda), hbm.to(cuda), index[:0])
     assert empty[0].shape == (0, chunks) and kernels.LAUNCHES["window_gather"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(JOIN_CASES))
+def test_window_join_matches_plain(cuda, case):
+    """The card's join through rekey_window against rekey_plain at the
+    join's edges (keys at INT64_MIN, -1 and INT64_MAX, a fleet all new, rows
+    all dropped, an empty fleet and window, an unchanged fleet): the rings,
+    the kept rows' keys and cycles and the four counts bit for bit, one
+    launch of the join and one wait; then a second call from the rows the
+    first left on the card. A repeated key, among the chips (new or
+    carried) or the rows, raises rekey_plain's ValueError and leaves the
+    state as it was."""
+    rows, keys, cycle, K = JOIN_CASES[case]
+    R = len(rows.keys) + len(rows.kept_keys)
+    g = torch.Generator().manual_seed(R + len(keys))
+    rings = [torch.randint(-1, 100, (R, K), generator=g, dtype=torch.int8) for _ in range(2)]
+    state = (*(r.to(cuda) for r in rings), torch.zeros((), dtype=torch.int32, device=cuda))
+    try:
+        want = engine.rekey_plain(rows, keys, cycle, K)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=re.escape(str(e))):
+            tp.rekey_window(state, rows, keys, cycle)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(state[:2], rings))
+        return
+    for step in range(2):
+        runs, kept_keys, kept_seen, counts = want
+        R = len(rows.keys) + len(rows.kept_keys)
+        before = dict(obs.counts), dict(tp.LAUNCHES)
+        r = tp.rekey_window(state, rows, keys, cycle)
+        grew = {k: obs.counts[k] - before[0][k] for k in before[0]}
+        launches = {k: tp.LAUNCHES[k] - before[1][k] for k in tp.LAUNCHES}
+        assert np.array_equal(r.rows.kept_keys, kept_keys), (case, step)
+        assert np.array_equal(r.rows.kept_seen, kept_seen), (case, step)
+        assert tuple(grew[f"window_rows_{k}"] for k in ("new", "retained", "dropped",
+                                                         "moved")) == counts, (case, step)
+        assert (grew["rekey_card"], grew["rekey_native"], grew["host_syncs"]) == (1, 0, 1)
+        moves = int(len(keys) + len(kept_keys) != R or counts != (0, len(kept_keys), 0, 0))
+        assert launches == {**dict.fromkeys(launches, 0), "window_join": 1,
+                            "window_gather": moves}, (case, step)
+        wanted = kernels.window_gather_plain(*(x.cpu() for x in state[:2]),
+                                             torch.from_numpy(runs), len(keys) + len(kept_keys))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(r.state[:2], wanted)), (case, step)
+        card = r.rows.on_card
+        on_card = card.keys.cpu().numpy()
+        assert np.array_equal(on_card[:card.present], r.rows.keys)
+        assert np.array_equal(on_card[card.present:card.present + card.kept], r.rows.kept_keys)
+        assert np.array_equal(on_card[card.seen_at:card.seen_at + card.kept], r.rows.kept_seen)
+        # the next cycle: the chips reversed, from the rows on the card
+        state, rows, keys, cycle = r.state, r.rows, keys[::-1].copy(), cycle + 1
+        want = engine.rekey_plain(rows, keys, cycle, K)
 
 
 @pytest.mark.gpu
@@ -861,13 +919,15 @@ def test_rekey_window_at_the_cells_size_matches_cpu(cuda):
     chips in 23,149 groups, K = 12), 20 cycles of a churned pool with the
     Multislice group's burst: rekey_window, update_window_ and
     evaluate_window_qc on the card give the rings, verdicts and candidates
-    of the same calls on the CPU (the plain versions) bit for bit; a cycle
-    that re-keys launches the row gather once and each one the int8 pass
-    once, in the row design, and the slice gate once; a cycle whose chips
-    are those of the last launches no gather; the carry copies nothing back
-    to the host."""
+    of the same calls on the CPU (the native join) bit for bit, and the same
+    kept rows' keys and cycles and the four window_rows counts; each cycle
+    launches the join once (rekey_card on every call on the card, the
+    native join on the CPU), the int8 pass once, in the row design, and the
+    slice gate once, and a cycle that re-keys the row gather once; a cycle
+    whose chips are those of the last launches no gather; each rekey_window
+    on the card waits for the card once and reads back once, the join's
+    counts and kept rows (the host needs the row count for the rings)."""
     from port_bench import churn
-    from tpu_pruner_torch import obs
 
     root = Path(__file__).resolve().parents[1]
     cfg = json.loads((root / "port_bench/configs/gke-65k-jobset-churn.json").read_text())
@@ -883,12 +943,12 @@ def test_rekey_window_at_the_cells_size_matches_cpu(cuda):
     rows = {d: tp.WindowRows.of(np.zeros(0, dtype=np.int64), 0) for d in states}
     gathers = 0
     for i, c in enumerate(cycles):
-        out = {}
+        out, grew = {}, {}
         for d in ("cuda", "cpu"):
             tp.reset_launches()
-            synced = obs.counts["d2h_bytes"], obs.counts["host_syncs"]
+            before = dict(obs.counts)
             r = tp.rekey_window(states[d], rows[d], c.keys, i)
-            assert (obs.counts["d2h_bytes"], obs.counts["host_syncs"]) == synced  # no readback
+            grew[d] = {k: obs.counts[k] - before[k] for k in before}
             rows[d] = r.rows
             tc, hbm, valid, age, _, _ = tp.fleet_from_numpy(
                 (c.tc, c.hbm, c.valid, c.age, c.slice_id, parr), d)
@@ -900,10 +960,20 @@ def test_rekey_window_at_the_cells_size_matches_cpu(cuda):
                 torch.cuda.synchronize()
                 launches = dict(tp.LAUNCHES)
         assert launches == {**dict.fromkeys(tp.LAUNCHES, 0), "chip_pass_q": 1, "slice_gate": 1,
-                            "window_gather": int(i != 5)}, i
+                            "window_join": 1, "window_gather": int(i != 5)}, i
         gathers += launches["window_gather"]
         assert all(torch.equal(a.cpu(), b) for a, b in zip(out["cuda"], out["cpu"])), i
         assert all(torch.equal(a.cpu(), b) for a, b in zip(states["cuda"][:2], states["cpu"][:2]))
         assert np.array_equal(rows["cuda"].kept_keys, rows["cpu"].kept_keys), i
+        assert np.array_equal(rows["cuda"].kept_seen, rows["cpu"].kept_seen), i
+        counted = ("window_rows_new", "window_rows_retained", "window_rows_dropped",
+                   "window_rows_moved")
+        assert [grew["cuda"][k] for k in counted] == [grew["cpu"][k] for k in counted], i
+        retained = grew["cuda"]["window_rows_retained"]
+        assert (grew["cuda"]["rekey_card"], grew["cuda"]["rekey_native"],
+                grew["cuda"]["host_syncs"], grew["cuda"]["d2h_bytes"]) == (
+                    1, 0, 1, 8 * (kernels.JOIN_COUNTS + 2 * retained)), i
+        assert (grew["cpu"]["rekey_card"], grew["cpu"]["rekey_native"],
+                grew["cpu"]["host_syncs"], grew["cpu"]["d2h_bytes"]) == (0, 1, 0, 0), i
     assert gathers == len(cycles) - 1
     assert states["cuda"][0].shape[0] > len(cycles[-1].keys)  # rows kept for absent chips

@@ -22,7 +22,7 @@ from tpu_pruner_torch.policy import (
     LAUNCHES, PolicyParams, chip_pass, chip_pass_plain, chip_pass_q, chip_pass_q_plain,
     evaluate_fleet, evaluate_fleet_c, evaluate_fleet_cuda, evaluate_fleet_cuda_q,
     evaluate_fleet_cuda_qc, evaluate_fleet_q, evaluate_fleet_qc, evaluate_fleet_qu, params_array,
-    quantize_fleet_inputs, quantize_params, slice_bounds)
+    WindowRows, quantize_fleet_inputs, quantize_params, slice_bounds)
 from tpu_pruner_torch.policy.engine import normalize_inputs, normalize_inputs_q
 from tpu_pruner_torch.policy.kernels import (
     _F32_GROUPS_MAX_T, _Q_ROWS_MAX_BYTES, _Q_ROWS_T, DESIGN_LAUNCHES, F32_DESIGN_LAUNCHES,
@@ -696,6 +696,65 @@ def stream_chunks(dev):
         expected.append(~((role == 1) | ((role == 2) & (0 in window))
                           | ((role == 3) & (1 in window))))
     return chunks, expected
+
+
+_I64 = np.iinfo(np.int64)
+
+
+def join_cases() -> dict:
+    """The window's key join at its edges: name -> (WindowRows, this
+    cycle's keys, cycle, K). Keys at INT64_MIN, -1 and INT64_MAX, a fleet
+    all new, rows all dropped, an empty fleet and an empty window, an
+    unchanged fleet, and each kind of repeated key: a chip key repeated
+    that is new and one that is carried, a row key repeated among the
+    last cycle's chips and the kept rows, and one among the kept rows."""
+    def rows(keys, cycle, kept=(), seen=()):
+        return WindowRows(np.array(keys, dtype=np.int64), cycle, np.array(kept, dtype=np.int64),
+                          np.array(seen, dtype=np.int64))
+
+    def chips(*keys):
+        return np.array(keys, dtype=np.int64)
+
+    lo, hi = int(_I64.min), int(_I64.max)
+    return {
+        "int64-extremes": (rows([lo, -1, hi, 5, 0], 3, [7, hi - 1, lo + 1], [1, 3, 2]),
+                           chips(hi, 9, -1, lo + 1, lo, 0), 4, 3),
+        "all-new": (rows([1, 2, 3], 3, [4], [2]), chips(10, 11, 12, 13), 4, 3),
+        "all-dropped": (rows([1, 2, 3], 0, [4], [0]), chips(10), 5, 3),
+        "empty-fleet": (rows([1, 2, 3], 3), chips(), 4, 3),
+        "empty-window": (rows([], 0), chips(5, 6, 7), 1, 3),
+        "unchanged": (rows([5, 6, 7], 0, [9], [0]), chips(5, 6, 7), 1, 3),
+        "repeated-new-chip": (rows([1, 2, 3], 0), chips(1, 9, 9), 1, 3),
+        "repeated-carried-chip": (rows([1, 2, 3], 0), chips(2, 1, 2), 1, 3),
+        "repeated-row": (rows([1, 2, 3], 2, [2], [1]), chips(3, 1), 3, 3),
+        "repeated-kept-row": (rows([1, 2], 2, [7, 7], [1, 1]), chips(1, 2), 3, 3),
+    }
+
+
+def join_fleet(rng, rows: int, kept: int, left: int, back: int, new: int, places: int,
+               cycle: int = 100, K: int = WINDOW_CHUNKS):
+    """A window of ``rows`` rows (the last cycle's chips, then ``kept`` rows
+    of absent chips, last seen 1 to K cycles back) and this cycle's chips:
+    the last cycle's in their order less ``left`` at random places, ``back``
+    of the kept rows' chips back at random places, and ``new`` new keys in
+    ``places`` runs at random places. The keys are distinct int64 spread
+    over the whole range. Returns (WindowRows, keys, cycle, K)."""
+    odd = np.uint64(0xD6E8FEB86659FD93)  # times an odd number: distinct keys stay distinct
+    with np.errstate(over="ignore"):
+        keys = (rng.permutation(rows + new).astype(np.uint64) * odd).view(np.int64)
+    present = rows - kept
+    prev, kept_keys, fresh = keys[:present], keys[present:rows], keys[rows:]
+    kept_seen = cycle - rng.integers(1, K + 1, size=kept)
+    stay = np.delete(prev, rng.choice(present, size=left, replace=False))
+    pieces = [[k] for k in rng.choice(kept_keys, size=back, replace=False)]
+    pieces += np.array_split(fresh, places)
+    at = np.sort(rng.integers(0, len(stay) + 1, size=len(pieces)))
+    out, start = [], 0
+    for a, k in zip(at, rng.permutation(len(pieces))):
+        out += [stay[start:a], pieces[k]]
+        start = a
+    out.append(stay[start:])
+    return (WindowRows(prev, cycle - 1, kept_keys, kept_seen), np.concatenate(out), cycle, K)
 
 
 def seeded_fleet(dev, C: int, T: int, S: int, cut: bool = False):

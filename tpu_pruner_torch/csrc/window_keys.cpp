@@ -1,7 +1,8 @@
 // The streaming window's join of row keys (tpu_pruner_torch.policy.engine.
-// rekey_window): where each of this cycle's chips was among the window's
-// rows, which rows of absent chips stay, and which go; bit for bit what the
-// plain version (engine.rekey_plain) gives.
+// rekey_window) for rings on the host: where each of this cycle's chips was
+// among the window's rows, which rows of absent chips stay, and which go;
+// bit for bit what the plain version (engine.rekey_plain) gives. Rings on the
+// card are joined on the card (tp_window_join in policy/csrc/chip_pass.cu).
 //
 // The rows are the last cycle's chips in the last cycle's order, then the
 // rows kept for chips absent then, and this cycle's chips come in the
@@ -22,8 +23,8 @@
 //
 // The rows out are given as runs: rows [out[k], out[k + 1]) take old rows
 // from src[k] on, or are new where src[k] is -1; a cycle's few thousand
-// changes give a few thousand runs, which is what goes up to the card in
-// place of a row index a row.
+// changes give a few thousand runs, which the plain gather
+// (kernels.window_gather_plain) takes in place of a row index a row.
 //
 // A repeated key among the chips in that table is refused; a key that
 // repeats a chip the walk carried is not seen, so the caller gives unique

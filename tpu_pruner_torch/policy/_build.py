@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``policy/csrc/chip_pass.cu`` (both chip passes, both slice reductions and the
-window's row gather)
+``policy/csrc/chip_pass.cu`` (both chip passes, both slice reductions, and the
+window's key join and row gather)
 becomes ``build/torch_kernels/libchip_pass.so`` at the repository root,
 compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain C interface. That
 builds in seconds, where an extension that includes PyTorch's headers takes
@@ -30,7 +30,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 # C signature of every entry point: pointers and the stream as void*, sizes
-# as int64, small counts as int; each returns cudaGetLastError() as an int.
+# as int64, small counts as int; each returns cudaGetLastError() as an int,
+# except the size query of RESTYPES.
 SIGNATURES = {
     # ..., num_chips, num_samples, then kernels.PlanQ in order, then the stream
     "tp_chip_pass_q": (_P, _P, _P, _P, _P, _I64, _I64,
@@ -46,10 +47,17 @@ SIGNATURES = {
     "tp_slice_gate": (_P, _P, _P, _I64, _I64, _I, _I, _I, _P),
     # candidate, ids, marks, out, num_chips, num_slices, id_bytes, the stream
     "tp_slice_scatter": (_P, _P, _P, _P, _I64, _I64, _I, _P),
-    # tc_in, hbm_in, runs ([2, M] int32), M, tc_out, hbm_out, rows out, row bytes,
+    # rows, chips: the join's scratch bytes
+    "tp_window_join_scratch": (_I64, _I64),
+    # row_keys, P, prev_cycle, kept_keys, kept_seen, Q, host_keys, keys, C, cycle,
+    # K, scratch, scratch bytes, index, out_kept, host, the stream
+    "tp_window_join": (_P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _I64, _P,
+                       _P, _P, _P),
+    # tc_in, hbm_in, index ([rows] int32), tc_out, hbm_out, rows out, row bytes,
     # the stream
-    "tp_window_gather": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _P),
+    "tp_window_gather": (_P, _P, _P, _P, _P, _I64, _I64, _P),
 }
+RESTYPES = {"tp_window_join_scratch": ctypes.c_int64}  # the rest return an int
 SOURCE = CSRC / "chip_pass.cu"
 LIBRARY = BUILD_DIR / "libchip_pass.so"
 
@@ -107,7 +115,7 @@ def load() -> ctypes.CDLL:
             for fn_name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
             _loaded = lib
         return _loaded
 

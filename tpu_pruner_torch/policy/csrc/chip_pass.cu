@@ -12,7 +12,8 @@
 // pass's chip verdicts to slice verdicts and have no Pallas counterpart: the
 // contiguous slice gate, tp_slice_gate, for chips in slice order, and the
 // scatter reduction, tp_slice_scatter, for chips in any order. Last, the
-// streaming window's row gather, tp_window_gather, which has none either.
+// streaming window's key join, tp_window_join, and its row gather,
+// tp_window_gather, which have none either.
 //
 // Both read every sample byte once and write one byte per chip: they are
 // bound by device-memory bandwidth and do no tensor-core work. At the fleet
@@ -1158,60 +1159,279 @@ void launch_marks(const uint8_t* cand, const void* ids, uint8_t* marks, int64_t 
         cand, static_cast<const I*>(ids), marks, num_chips, num_slices);
 }
 
-// --- the streaming window's row gather -----------------------------------------
+// --- the streaming window's key join and row gather ----------------------------
 //
 // When the fleet changes between daemon cycles, the window's two int8 rings
-// [rows, K] are re-keyed (engine.rekey_window). The rows out come as runs:
-// rows from run_out[k] on take the old rows from run_src[k] on, or are all
-// INVALID_Q (-1) where run_src[k] < 0, chips new to the window. A cycle's
-// few thousand changes give a few thousand runs, some 30 KB up from the host
-// where a row index a row would be a megabyte. The reference keeps a window
-// per fleet and starts over when the fleet changes, so no Pallas kernel does
-// this. It is a copy bound by bandwidth: the carried rows of both rings read
-// once, both rings written once (about 12.6 MB at 263,000 rows of K = 12).
-// One launch moves both rings: a thread a word of a row, 4-byte words where
-// K and the rings allow, else bytes, so neighbouring threads write
-// neighbouring words and the gather of a row's words reads one line; each
-// thread finds its row's run by a binary search over the run starts, which
-// stay in L1 and L2.
+// [rows, K] are re-keyed (engine.rekey_window): each of this cycle's C chips
+// takes the row its int64 key had, or a new row of INVALID_Q (-1) where the
+// key is new; the rows of absent chips seen fewer than K cycles ago follow,
+// in row order; the rest go. The reference keeps a window per fleet and
+// starts over when the fleet changes, so no Pallas kernel does this. The
+// result is bit for bit engine.rekey_plain's.
+//
+// The join (tp_window_join) is a hash join on the card: the chips' keys go
+// up from pinned host memory in one copy, then one memset and three
+// kernels:
+//   - the build inserts each row r into an open-addressing table of int32
+//     slots (0 empty, else r + 1), a power of two of at least 2 (R + C),
+//     with atomicCAS; keys are compared through the rows' key arrays, so
+//     every int64 is a key and none is a sentinel. A row that meets its own
+//     key marks the rows' keys repeated;
+//   - the probe looks each chip's key up: a chip that finds its row takes it
+//     (atomicCAS on the row's owner, 0 free, else chip + 1) and writes the
+//     row into the gather's index; a chip that finds the row taken marks
+//     the chips' keys repeated. A chip whose key is not there inserts
+//     itself (R + chip + 1) where the probe met the empty slot, so a second
+//     chip of the same key meets it: a new key repeated is seen too;
+//   - the compaction keeps, in row order, each row that no chip took and
+//     whose last-seen cycle is fewer than K cycles back: an ordered stream
+//     compaction in one pass, tiles of kJoinThreads x kJoinItems rows taken
+//     in launch order from a ticket, each tile's offset found by a
+//     decoupled look-back over the tiles before it. A kept row's place goes
+//     into the index after the C chips', and its key and cycle into the
+//     next call's rows on the card and into pinned host memory, which the
+//     kernel writes through its device mapping. The last tile to finish
+//     writes the counts (new, retained, dropped, moved) and the flags there,
+//     so the host waits once and copies nothing back.
+// A zeroed scratch buffer (head words, tile states, the table, the owners)
+// is one memset: every mark above starts at 0. At 263,000 rows and 260,000
+// chips the kernels read about 5 MB and write the index and kept rows.
+//
+// The gather (tp_window_gather) then moves both rings by that index: rows
+// out take the old row index[row], or are all INVALID_Q where it is -1. It
+// is a copy bound by bandwidth: the carried rows of both rings read once,
+// both rings written once (about 12.6 MB at 263,000 rows of K = 12). One
+// launch moves both rings: a thread a word of a row, 4-byte words where K
+// and the rings allow, else bytes, so neighbouring threads write
+// neighbouring words and the gather of a row's words reads one line.
 
+constexpr int kJoinThreads = 256;
+constexpr int kJoinItems = 8;  // rows a thread of the compaction, in rounds of kJoinThreads
+constexpr int kJoinWarps = kJoinThreads / 32;
+constexpr int64_t kJoinTile = int64_t(kJoinThreads) * kJoinItems;
 constexpr int kGatherThreads = 256;
+
+// The head words of the join's scratch buffer, unsigned long long each.
+enum JoinHead { kTicket, kDone, kUntaken, kKept, kMoved, kChipsRepeat, kRowsRepeat, kHeadWords };
+// A tile's state in the look-back: flag << 32 | rows kept (flag 1: the
+// tile's own count, 2: the count of every row up to the tile's end).
+constexpr unsigned long long kTileOwn = 1ull << 32, kTileAll = 2ull << 32;
+// The host's words before the kept rows: flags, new, retained, dropped,
+// moved, and three unused.
+constexpr int64_t kJoinCounts = 8;
+
+struct JoinRows {  // the window's rows: the last cycle's P chips, then Q kept rows
+    const int64_t* keys;
+    int64_t present;
+    int64_t cycle;  // the cycle the first `present` rows were seen in
+    const int64_t* kept_keys;
+    const int64_t* kept_seen;
+    int64_t total;
+
+    __device__ int64_t key(int64_t r) const {
+        return r < present ? __ldg(keys + r) : __ldg(kept_keys + (r - present));
+    }
+    __device__ int64_t seen(int64_t r) const {
+        return r < present ? cycle : __ldg(kept_seen + (r - present));
+    }
+};
+
+struct JoinScratch {
+    unsigned long long* head;
+    unsigned long long* tiles;
+    int32_t* table;
+    int32_t* owner;
+    uint64_t mask;  // table slots - 1
+    int shift;      // 64 - log2(table slots)
+};
+
+int64_t join_table_slots(int64_t rows, int64_t chips) {
+    int64_t slots = 16;
+    while (slots < 2 * (rows + chips)) slots *= 2;
+    return slots;
+}
+
+int64_t join_tiles(int64_t rows) { return rows > 0 ? (rows + kJoinTile - 1) / kJoinTile : 1; }
+
+int64_t join_scratch_bytes(int64_t rows, int64_t chips) {
+    return int64_t(sizeof(unsigned long long)) * (kHeadWords + join_tiles(rows)) +
+           int64_t(sizeof(int32_t)) * (join_table_slots(rows, chips) + rows);
+}
+
+__device__ __forceinline__ uint64_t join_slot(int64_t key, int shift) {
+    return (uint64_t(key) * 0x9E3779B97F4A7C15ull) >> shift;
+}
+
+__global__ void __launch_bounds__(kJoinThreads)
+join_build_kernel(JoinRows rows, JoinScratch s) {
+    const int64_t r = int64_t(blockIdx.x) * kJoinThreads + threadIdx.x;
+    if (r >= rows.total) return;
+    const int64_t key = rows.key(r);
+    for (uint64_t at = join_slot(key, s.shift);; at = (at + 1) & s.mask) {
+        const int32_t held = atomicCAS(s.table + at, 0, int32_t(r + 1));
+        if (held == 0) return;
+        if (rows.key(held - 1) == key) {  // only rows are in the table yet
+            s.head[kRowsRepeat] = 1;
+            return;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(kJoinThreads)
+join_probe_kernel(JoinRows rows, const int64_t* __restrict__ keys, int64_t chips,
+                  JoinScratch s, int32_t* __restrict__ index) {
+    const int64_t c = int64_t(blockIdx.x) * kJoinThreads + threadIdx.x;
+    if (c >= chips) return;
+    const int64_t key = __ldg(keys + c);
+    int32_t src = -1;
+    for (uint64_t at = join_slot(key, s.shift);; at = (at + 1) & s.mask) {
+        int32_t held = *reinterpret_cast<volatile int32_t*>(s.table + at);
+        if (held == 0) held = atomicCAS(s.table + at, 0, int32_t(rows.total + c + 1));
+        if (held == 0) break;  // a new key, now in the table
+        const int64_t e = held - 1;
+        if ((e < rows.total ? rows.key(e) : __ldg(keys + (e - rows.total))) != key) continue;
+        if (e < rows.total && atomicCAS(s.owner + e, 0, int32_t(c + 1)) == 0)
+            src = int32_t(e);
+        else  // the row another chip of this key took, or that chip itself
+            s.head[kChipsRepeat] = 1;
+        break;
+    }
+    index[c] = src;
+}
+
+__device__ __forceinline__ long long join_block_sum(long long v, long long* shared) {
+    for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(kFullMask, v, off);
+    if ((threadIdx.x & 31) == 0) shared[threadIdx.x / 32] = v;
+    __syncthreads();
+    long long sum = 0;
+    for (int w = 0; w < kJoinWarps; ++w) sum += shared[w];
+    __syncthreads();
+    return sum;
+}
+
+struct JoinOut {
+    int32_t* index;           // [C + R]: the kept rows' entries from C on
+    int64_t* kept_keys;       // [R] on the card: the next call's rows
+    int64_t* kept_seen;       // [R]
+    int64_t* host;            // pinned: kJoinCounts words, then R keys, then R cycles
+};
+
+__global__ void __launch_bounds__(kJoinThreads)
+join_compact_kernel(JoinRows rows, int64_t chips, int64_t cycle, int64_t chunks, JoinScratch s,
+                    JoinOut out, int64_t tiles) {
+    __shared__ unsigned long long tile_at;
+    __shared__ unsigned before[kJoinItems * kJoinWarps];  // then the exclusive prefix
+    __shared__ long long sums[kJoinWarps];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+    if (threadIdx.x == 0) tile_at = atomicAdd(s.head + kTicket, 1ull);
+    __syncthreads();
+    const int64_t tile = int64_t(tile_at), base = tile * kJoinTile;
+    unsigned keep = 0;
+    long long untaken = 0, moved = 0;
+    for (int i = 0; i < kJoinItems; ++i) {
+        const int64_t r = base + int64_t(i) * kJoinThreads + threadIdx.x;
+        if (r < rows.total) {
+            const int32_t owner = s.owner[r];
+            if (owner == 0) {
+                untaken += 1;
+                if (int64_t(uint64_t(cycle) - uint64_t(rows.seen(r))) < chunks) keep |= 1u << i;
+            } else {
+                moved += owner - 1 != r;
+            }
+        }
+        const unsigned ballot = __ballot_sync(kFullMask, (keep >> i) & 1u);
+        if (lane == 0) before[i * kJoinWarps + warp] = __popc(ballot);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned running = 0;
+        for (int e = 0; e < kJoinItems * kJoinWarps; ++e) {
+            const unsigned n = before[e];
+            before[e] = running;
+            running += n;
+        }
+        // the look-back: the tiles before this one started before it
+        unsigned long long prefix = 0;
+        if (tile == 0) {
+            atomicExch(s.tiles, kTileAll | running);
+        } else {
+            atomicExch(s.tiles + tile, kTileOwn | running);
+            for (int64_t t = tile - 1;; ) {
+                const unsigned long long state =
+                    *reinterpret_cast<volatile unsigned long long*>(s.tiles + t);
+                if ((state >> 32) == 0) continue;  // not yet counted
+                prefix += state & 0xffffffffull;
+                if ((state & kTileAll) == kTileAll) break;
+                --t;
+            }
+            atomicExch(s.tiles + tile, kTileAll | (prefix + running));
+        }
+        tile_at = prefix;
+        atomicAdd(s.head + kKept, (unsigned long long)running);
+    }
+    __syncthreads();
+    const int64_t prefix = int64_t(tile_at);
+    const unsigned below = (1u << lane) - 1u;
+    for (int i = 0; i < kJoinItems; ++i) {
+        const unsigned ballot = __ballot_sync(kFullMask, (keep >> i) & 1u);
+        if (!((keep >> i) & 1u)) continue;
+        const int64_t r = base + int64_t(i) * kJoinThreads + threadIdx.x;
+        const int64_t at = prefix + before[i * kJoinWarps + warp] + __popc(ballot & below);
+        const int64_t key = rows.key(r), seen = rows.seen(r);
+        out.index[chips + at] = int32_t(r);
+        out.kept_keys[at] = key;
+        out.kept_seen[at] = seen;
+        out.host[kJoinCounts + at] = key;
+        out.host[kJoinCounts + rows.total + at] = seen;
+        moved += chips + at != r;
+    }
+    untaken = join_block_sum(untaken, sums);
+    moved = join_block_sum(moved, sums);
+    if (threadIdx.x == 0) {
+        atomicAdd(s.head + kUntaken, (unsigned long long)untaken);
+        atomicAdd(s.head + kMoved, (unsigned long long)moved);
+        __threadfence();
+        if (atomicAdd(s.head + kDone, 1ull) == (unsigned long long)(tiles - 1)) {
+            // the last tile: every count is in
+            const int64_t left = int64_t(atomicAdd(s.head + kUntaken, 0ull));
+            const int64_t kept = int64_t(atomicAdd(s.head + kKept, 0ull));
+            out.host[0] = int64_t(s.head[kChipsRepeat] != 0) | int64_t(s.head[kRowsRepeat] != 0) << 1;
+            out.host[1] = chips - (rows.total - left);  // new: the chips that took no row
+            out.host[2] = kept;
+            out.host[3] = left - kept;  // dropped
+            out.host[4] = int64_t(atomicAdd(s.head + kMoved, 0ull));
+            __threadfence_system();
+        }
+    }
+}
 
 template <typename W>
 __global__ void __launch_bounds__(kGatherThreads)
 window_gather_kernel(const W* __restrict__ tc_in, const W* __restrict__ hbm_in,
-                     const int32_t* __restrict__ run_out, const int32_t* __restrict__ run_src,
-                     int64_t runs, W* __restrict__ tc_out, W* __restrict__ hbm_out,
-                     int64_t words, int64_t row_words) {
+                     const int32_t* __restrict__ index, W* __restrict__ tc_out,
+                     W* __restrict__ hbm_out, int64_t words, int64_t row_words) {
     const int64_t t = int64_t(blockIdx.x) * kGatherThreads + threadIdx.x;
     if (t >= words) return;
     const int64_t row = t / row_words;
-    int64_t lo = 0, hi = runs - 1;  // the last run that starts at or before row
-    while (lo < hi) {
-        const int64_t mid = (lo + hi + 1) / 2;
-        if (__ldg(run_out + mid) <= row) lo = mid;
-        else hi = mid - 1;
-    }
-    const int32_t src = __ldg(run_src + lo);
+    const int32_t src = __ldg(index + row);
     if (src < 0) {
         tc_out[t] = W(~W(0));  // every byte INVALID_Q
         hbm_out[t] = W(~W(0));
     } else {
-        const int64_t from = (int64_t(src) + row - __ldg(run_out + lo)) * row_words +
-                             (t - row * row_words);
+        const int64_t from = int64_t(src) * row_words + (t - row * row_words);
         tc_out[t] = __ldg(tc_in + from);
         hbm_out[t] = __ldg(hbm_in + from);
     }
 }
 
 template <typename W>
-void launch_window_gather(const void* tc_in, const void* hbm_in, const int32_t* run_out,
-                          const int32_t* run_src, int64_t runs, void* tc_out, void* hbm_out,
-                          int64_t rows, int64_t row_words, cudaStream_t stream) {
+void launch_window_gather(const void* tc_in, const void* hbm_in, const int32_t* index,
+                          void* tc_out, void* hbm_out, int64_t rows, int64_t row_words,
+                          cudaStream_t stream) {
     const int64_t words = rows * row_words;
     window_gather_kernel<W><<<unsigned((words + kGatherThreads - 1) / kGatherThreads),
                               kGatherThreads, 0, stream>>>(
-        static_cast<const W*>(tc_in), static_cast<const W*>(hbm_in), run_out, run_src, runs,
+        static_cast<const W*>(tc_in), static_cast<const W*>(hbm_in), index,
         static_cast<W*>(tc_out), static_cast<W*>(hbm_out), words, row_words);
 }
 
@@ -1323,27 +1543,85 @@ int tp_slice_scatter(const void* candidate, const void* ids, void* marks, void* 
     return int(cudaGetLastError());
 }
 
-// The window's row gather: rows out rows of row_bytes (K) each, given by
-// runs, an int32 [2, num_runs] array of run starts (the first 0, ascending)
-// and their first old rows (-1: new rows). Takes rows >= 1 and num_runs >= 1
-// (the wrapper launches nothing otherwise); 4-byte words where row_bytes and
-// every pointer allow.
-int tp_window_gather(const void* tc_in, const void* hbm_in, const void* runs, int64_t num_runs,
-                     void* tc_out, void* hbm_out, int64_t rows, int64_t row_bytes, void* stream) {
-    if (rows < 1 || row_bytes < 1 || num_runs < 1 ||
+// The join's scratch buffer, in bytes, for R rows and C chips.
+int64_t tp_window_join_scratch(int64_t rows, int64_t chips) {
+    return join_scratch_bytes(rows, chips);
+}
+
+// The window's key join: the rows are row_keys [P] (the last cycle's chips,
+// seen in prev_cycle), then kept_keys [Q] each last seen in kept_seen, on
+// the card; this cycle's chips are host_keys [C] in pinned host memory, in
+// cycle, which this copies to keys [C] on the card first; K chunks. scratch
+// holds tp_window_join_scratch(P + Q, C) bytes on the card, which this
+// zeroes. Writes index [C + P + Q] (int32: each chip's old row or -1, then
+// the kept rows' old rows), out_kept [2, P + Q] (int64 on the card: the kept
+// rows' keys, then from P + Q on their cycles) and host, pinned host memory
+// of at least 8 + 2 (P + Q) int64: {flags (1 the chips' keys repeat, 2 the
+// rows'), new, retained, dropped, moved}, then from 8 on the kept rows'
+// keys and from 8 + P + Q on their cycles. A copy, a memset and up to three
+// kernels, no wait: host is written once the stream reaches the call's end.
+int tp_window_join(const void* row_keys, int64_t P, int64_t prev_cycle, const void* kept_keys,
+                   const void* kept_seen, int64_t Q, const void* host_keys, void* keys, int64_t C,
+                   int64_t cycle, int64_t K, void* scratch, int64_t scratch_bytes, void* index,
+                   void* out_kept, void* host, void* stream) {
+    const int64_t R = P + Q;
+    if (P < 0 || Q < 0 || C < 0 || R + C + 1 > 0x7fffffff ||
+        scratch_bytes < join_scratch_bytes(R, C))
+        return int(cudaErrorInvalidValue);
+    cudaPointerAttributes host_at;
+    cudaError_t status = cudaPointerGetAttributes(&host_at, host);
+    if (status != cudaSuccess) return int(status);
+    if (host_at.type != cudaMemoryTypeHost || host_at.devicePointer == nullptr)
+        return int(cudaErrorInvalidValue);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (C > 0) {
+        status = cudaMemcpyAsync(keys, host_keys, size_t(C) * sizeof(int64_t),
+                                 cudaMemcpyHostToDevice, s);
+        if (status != cudaSuccess) return int(status);
+    }
+    status = cudaMemsetAsync(scratch, 0, size_t(join_scratch_bytes(R, C)), s);
+    if (status != cudaSuccess) return int(status);
+    const int64_t slots = join_table_slots(R, C), tiles = join_tiles(R);
+    int shift = 64;
+    for (int64_t n = slots; n > 1; n /= 2) --shift;
+    const auto head = static_cast<unsigned long long*>(scratch);
+    const auto table = reinterpret_cast<int32_t*>(head + kHeadWords + tiles);
+    const JoinScratch js{head, head + kHeadWords, table, table + slots, uint64_t(slots - 1),
+                         shift};
+    const JoinRows rows{static_cast<const int64_t*>(row_keys), P, prev_cycle,
+                        static_cast<const int64_t*>(kept_keys),
+                        static_cast<const int64_t*>(kept_seen), R};
+    const auto kept = static_cast<int64_t*>(out_kept);
+    const JoinOut out{static_cast<int32_t*>(index), kept, kept + R,
+                      static_cast<int64_t*>(host_at.devicePointer)};
+    if (R > 0)
+        join_build_kernel<<<unsigned((R + kJoinThreads - 1) / kJoinThreads), kJoinThreads, 0, s>>>(
+            rows, js);
+    if (C > 0)
+        join_probe_kernel<<<unsigned((C + kJoinThreads - 1) / kJoinThreads), kJoinThreads, 0, s>>>(
+            rows, static_cast<const int64_t*>(keys), C, js, out.index);
+    join_compact_kernel<<<unsigned(tiles), kJoinThreads, 0, s>>>(rows, C, cycle, K, js, out,
+                                                                  tiles);
+    return int(cudaGetLastError());
+}
+
+// The window's row gather: rows out rows of row_bytes (K) each, row r the
+// old row index[r] (int32), or all INVALID_Q where that is -1. Takes
+// rows >= 1 (the wrapper launches nothing otherwise); 4-byte words where
+// row_bytes and every pointer allow.
+int tp_window_gather(const void* tc_in, const void* hbm_in, const void* index, void* tc_out,
+                     void* hbm_out, int64_t rows, int64_t row_bytes, void* stream) {
+    if (rows < 1 || row_bytes < 1 ||
         (rows * row_bytes + kGatherThreads - 1) / kGatherThreads > 0x7fffffff)
         return int(cudaErrorInvalidValue);
-    const auto run_out = static_cast<const int32_t*>(runs);
-    const auto run_src = run_out + num_runs;
+    const auto idx = static_cast<const int32_t*>(index);
     const auto s = static_cast<cudaStream_t>(stream);
     const uintptr_t bases = reinterpret_cast<uintptr_t>(tc_in) | reinterpret_cast<uintptr_t>(hbm_in) |
                             reinterpret_cast<uintptr_t>(tc_out) | reinterpret_cast<uintptr_t>(hbm_out);
     if (row_bytes % 4 == 0 && bases % 4 == 0)
-        launch_window_gather<uint32_t>(tc_in, hbm_in, run_out, run_src, num_runs, tc_out, hbm_out,
-                                       rows, row_bytes / 4, s);
+        launch_window_gather<uint32_t>(tc_in, hbm_in, idx, tc_out, hbm_out, rows, row_bytes / 4, s);
     else
-        launch_window_gather<uint8_t>(tc_in, hbm_in, run_out, run_src, num_runs, tc_out, hbm_out,
-                                      rows, row_bytes, s);
+        launch_window_gather<uint8_t>(tc_in, hbm_in, idx, tc_out, hbm_out, rows, row_bytes, s);
     return int(cudaGetLastError());
 }
 

@@ -42,8 +42,9 @@ import numpy as np
 import torch
 
 from .. import hostlib, obs
-from .kernels import (_FLT_MIN, chip_pass, chip_pass_q, flush_subnormal, normalize_slice_ids,
-                      slice_gate, slice_scatter, window_gather)
+from .kernels import (_FLT_MIN, JOIN_COUNTS, CardRows, chip_pass, chip_pass_q, flush_subnormal,
+                      gather_runs, normalize_slice_ids, slice_gate, slice_scatter, window_gather,
+                      window_gather_plain, window_join)
 # the sharded paths' per-rank counts
 from .kernels import slice_counts, slice_counts_contiguous  # noqa: F401
 
@@ -501,6 +502,9 @@ class WindowRows(NamedTuple):
     cycle: int              # the cycle they were present in
     kept_keys: np.ndarray   # int64 [R - C]: the kept rows' chips
     kept_seen: np.ndarray   # int64 [R - C]: the last cycle each was present in
+    # the same keys and cycles on the card, where rekey_window left them
+    # there; None where they are on the host alone
+    on_card: CardRows | None = None
 
     @classmethod
     def of(cls, keys, cycle: int) -> "WindowRows":
@@ -548,23 +552,31 @@ def rekey_window(state, rows: WindowRows, keys, cycle: int) -> Rekeyed:
     and the kept rows as no data, and evaluate_window_qc judges the first
     C rows, over this cycle's slices alone; nothing else changes.
 
-    The join runs on the host (``csrc/window_keys.cpp``, or the plain
+    Where the rings lie on the card, the join runs there
+    (``kernels.window_join``, a hash join over the int64 keys): this
+    cycle's keys go up once, from pinned memory, the rows' keys are those the
+    last call left on the card (``WindowRows.on_card``; uploaded where a
+    caller has none),
+    and the host waits once for the counts and the kept rows, which the
+    join writes into pinned host memory; ``kernels.window_gather`` then
+    moves the rows by the join's row index, on the card. Where they lie on
+    the host, the join runs there (``csrc/window_keys.cpp``, or the plain
     version ``rekey_plain`` where the library is missing or refuses the
-    input); the rows move on the device in one launch of
-    ``kernels.window_gather`` after one upload of the rows' runs
-    (``gather_runs``: a few thousand a cycle where the fleet changes by a
-    few thousand chips, where a row index a row would be a megabyte).
-    Where every row stays in place and none comes or goes, it returns
-    ``state`` as it is, with no device operation and no copy. It never
-    copies from the device, and keeps ``keys`` as the rows' first keys
-    without a copy. The ``obs`` counters ``window_rows_new``, ``_retained``,
-    ``_dropped`` and ``_moved`` (rows that changed place) count its rows.
+    input) and ``window_gather_plain`` moves the rows by the runs of its
+    row index (``gather_runs``). Either way, where every row stays in place
+    and none comes or goes, it returns ``state`` as it is, with no gather,
+    and keeps ``keys`` as the rows' first keys without a copy. A repeated
+    key, among the chips or the rows, raises ValueError and leaves
+    ``state`` as it was. The ``obs`` counters ``window_rows_new``,
+    ``_retained``, ``_dropped`` and ``_moved`` (rows that changed place)
+    count its rows, and ``rekey_card``, ``rekey_native`` and
+    ``rekey_plain`` the calls each join answered.
     """
     tc_ring, hbm_ring, cursor = state
     keys = np.ascontiguousarray(keys, dtype=np.int64)
     rows = WindowRows(np.ascontiguousarray(rows.keys, dtype=np.int64), int(rows.cycle),
                       np.ascontiguousarray(rows.kept_keys, dtype=np.int64),
-                      np.ascontiguousarray(rows.kept_seen, dtype=np.int64))
+                      np.ascontiguousarray(rows.kept_seen, dtype=np.int64), rows.on_card)
     total = len(rows.keys) + len(rows.kept_keys)
     if (tc_ring.dim() != 2 or tc_ring.shape[0] != total or keys.ndim != 1
             or rows.keys.ndim != 1 or rows.kept_seen.shape != rows.kept_keys.shape):
@@ -572,33 +584,69 @@ def rekey_window(state, rows: WindowRows, keys, cycle: int) -> Rekeyed:
                          f"got rings {tuple(tc_ring.shape)}, {len(rows.keys)} + "
                          f"{rows.kept_keys.shape} rows, keys {keys.shape}")
     num_chunks = tc_ring.shape[1]
-    joined = _rekey_native(rows, keys, int(cycle), num_chunks)
-    if joined is None:
-        joined = rekey_plain(rows, keys, int(cycle), num_chunks)
-    runs, kept_keys, kept_seen, (new, retained, dropped, moved) = joined
+    if tc_ring.is_cuda:
+        out, index, counts = _rekey_card(tc_ring.device, rows, keys, int(cycle), num_chunks)
+    else:
+        out, runs, counts = _rekey_host(rows, keys, int(cycle), num_chunks)
+    new, retained, dropped, moved = counts
     for name, n in (("new", new), ("retained", retained), ("dropped", dropped),
                     ("moved", moved)):
         obs.count(f"window_rows_{name}", n)
-    out = WindowRows(keys, int(cycle), kept_keys, kept_seen)
-    rows_out = len(keys) + len(kept_keys)
+    rows_out = len(keys) + len(out.kept_keys)
     if rows_out == total and not (new or dropped or moved):
         return Rekeyed(state, out, len(keys))
-    tc_ring, hbm_ring = window_gather(
-        tc_ring, hbm_ring, obs.to_device(torch.from_numpy(runs), tc_ring.device), rows_out)
+    if tc_ring.is_cuda:
+        tc_ring, hbm_ring = window_gather(tc_ring, hbm_ring, index)
+    else:
+        tc_ring, hbm_ring = window_gather_plain(tc_ring, hbm_ring, torch.from_numpy(runs),
+                                                rows_out)
     return Rekeyed((tc_ring, hbm_ring, cursor), out, len(keys))
 
 
-def gather_runs(gather) -> np.ndarray:
-    """A row gather (int [N]: the old row each row out takes, -1 for a new
-    one) as its maximal runs, int32 [2, M]: rows out from ``[0, m]`` on take
-    old rows from ``[1, m]`` on, or are new where that is -1."""
-    gather = np.asarray(gather, dtype=np.int64)
-    if not len(gather):
-        return np.zeros((2, 0), dtype=np.int32)
-    prev, cur = gather[:-1], gather[1:]
-    goes_on = np.where(cur < 0, prev < 0, (prev >= 0) & (cur == prev + 1))
-    starts = np.flatnonzero(np.concatenate([[True], ~goes_on]))
-    return np.stack([starts, gather[starts]]).astype(np.int32)
+def _rekey_host(rows: WindowRows, keys, cycle: int, num_chunks: int):
+    """The join on the host: (the rows out, their runs, the counts)."""
+    joined = _rekey_native(rows, keys, cycle, num_chunks)
+    if joined is None:
+        joined = rekey_plain(rows, keys, cycle, num_chunks)
+        obs.count("rekey_plain")
+    else:
+        obs.count("rekey_native")
+    runs, kept_keys, kept_seen, counts = joined
+    return WindowRows(keys, cycle, kept_keys, kept_seen), runs, counts
+
+
+def _rekey_card(device, rows: WindowRows, keys, cycle: int, num_chunks: int):
+    """The join on the card: (the rows out, with their keys left on the
+    card; the row index on the card, [rows out]; the counts). The keys go
+    up in the join's own copy, from pinned memory; the rows' keys too where
+    the last call did not leave them on the card. One wait."""
+    on_card = rows.on_card
+    if on_card is None or on_card.keys.device != device:
+        P, Q = len(rows.keys), len(rows.kept_keys)
+        up = np.concatenate([rows.keys, rows.kept_keys, rows.kept_seen])
+        on_card = CardRows(obs.to_device(torch.from_numpy(up), device), P, Q, P + Q)
+    joined = window_join(on_card, keys, rows.cycle, cycle, num_chunks)
+    obs.count("h2d_bytes", keys.nbytes)
+    torch.cuda.current_stream(device).synchronize()  # the join's counts and kept rows
+    obs.count("host_syncs")
+    host = joined.host.numpy()
+    flags, new, retained, dropped, moved = (int(x) for x in host[:5])
+    obs.count("d2h_bytes", 8 * (JOIN_COUNTS + 2 * retained))
+    if flags:
+        _refuse_repeated(chips=bool(flags & 1))
+    obs.count("rekey_card")
+    total = len(rows.keys) + len(rows.kept_keys)
+    kept_keys = host[JOIN_COUNTS:JOIN_COUNTS + retained]
+    kept_seen = host[JOIN_COUNTS + total:JOIN_COUNTS + total + retained]
+    out = WindowRows(keys, cycle, kept_keys, kept_seen,
+                     CardRows(joined.keys, len(keys), retained, len(keys) + total))
+    return out, joined.index[:len(keys) + retained], (new, retained, dropped, moved)
+
+
+def _refuse_repeated(chips: bool):
+    if chips:
+        raise ValueError("this cycle's chip keys repeat: the window keys each row by one chip")
+    raise ValueError("the window's row keys repeat")
 
 
 def rekey_plain(rows: WindowRows, keys, cycle: int, num_chunks: int):
@@ -608,9 +656,9 @@ def rekey_plain(rows: WindowRows, keys, cycle: int, num_chunks: int):
     raises ValueError where a key repeats."""
     row_keys, row_seen = rows.all_keys(), rows.all_seen()
     if np.unique(keys).size != keys.size:
-        raise ValueError("this cycle's chip keys repeat: the window keys each row by one chip")
+        _refuse_repeated(chips=True)
     if np.unique(row_keys).size != row_keys.size:
-        raise ValueError("the window's row keys repeat")
+        _refuse_repeated(chips=False)
     hit = np.zeros(len(keys), dtype=bool)
     found = np.full(len(keys), -1, dtype=np.int64)
     if len(row_keys):

@@ -24,10 +24,14 @@ each row to one verdict: a bandwidth-bound pass with no tensor-core work.
   ``tp_slice_scatter``, which has no Pallas counterpart either: it is the
   reference's ``segment_sum`` reduction of ``evaluate_fleet`` and ``_q``,
   with two idempotent marks a slice in place of two counts;
-- ``window_gather`` (the streaming window's two int8 rings + a row gather)
-  launches ``tp_window_gather``, which has no Pallas counterpart: it carries
-  the window's rows to a changed fleet's order (``engine.rekey_window``),
-  where the reference starts the window over.
+- ``window_join`` (the streaming window's rows' int64 keys on the card +
+  this cycle's chips' keys on the host) launches ``tp_window_join``, a hash
+  join, and
+  ``window_gather`` (the window's two int8 rings + the join's row index)
+  launches ``tp_window_gather``; neither has a Pallas counterpart: they
+  carry the window's rows to a changed fleet's order
+  (``engine.rekey_window``), where the reference starts the window over.
+  The join's plain version is ``engine.rekey_plain``, on the host.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. The plain versions apply the
@@ -47,6 +51,7 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -54,7 +59,7 @@ from . import _build
 _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
 LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0, "slice_scatter": 0,
-            "window_gather": 0}
+            "window_gather": 0, "window_join": 0}
 DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
 F32_DESIGN_LAUNCHES = {"groups": 0, "long": 0}  # chip_pass's, by design
 
@@ -534,9 +539,23 @@ def _launch_scatter(candidate, slice_id, num_slices: int) -> torch.Tensor:
     return out
 
 
-# --- the streaming window's row gather ----------------------------------------
+# --- the streaming window's key join and row gather ---------------------------
 
 _INVALID_Q = -1  # engine.INVALID_Q: a chunk with no valid sample
+JOIN_COUNTS = 8  # the host words before the kept rows (kJoinCounts in chip_pass.cu)
+
+
+def gather_runs(gather) -> np.ndarray:
+    """A row gather (int [N]: the old row each row out takes, -1 for a new
+    one) as its maximal runs, int32 [2, M]: rows out from ``[0, m]`` on take
+    old rows from ``[1, m]`` on, or are new where that is -1."""
+    gather = np.asarray(gather, dtype=np.int64)
+    if not len(gather):
+        return np.zeros((2, 0), dtype=np.int32)
+    prev, cur = gather[:-1], gather[1:]
+    goes_on = np.where(cur < 0, prev < 0, (prev >= 0) & (cur == prev + 1))
+    starts = np.flatnonzero(np.concatenate([[True], ~goes_on]))
+    return np.stack([starts, gather[starts]]).astype(np.int32)
 
 
 def window_gather_plain(tc_ring, hbm_ring, runs, rows: int):
@@ -557,27 +576,27 @@ def window_gather_plain(tc_ring, hbm_ring, runs, rows: int):
     return tuple(out)
 
 
-def window_gather(tc_ring, hbm_ring, runs, rows: int):
-    """The window's rings re-keyed: (tc, hbm) int8 [rows, K], fresh tensors.
+def window_gather(tc_ring, hbm_ring, index):
+    """The window's rings re-keyed on the card: (tc, hbm) int8 [rows, K],
+    fresh tensors, row r the rings' row ``index[r]``, or all INVALID_Q where
+    it is -1 (chips new to the window).
 
-    ``runs`` (int32 [2, M], ``engine.gather_runs``): the rows out from
-    ``runs[0, m]`` on (0 first, ascending) take the rings' rows from
-    ``runs[1, m]`` on, or are all INVALID_Q where it is negative (chips new
-    to the window). tc_ring, hbm_ring: int8 [R, K]. The kernel does not
-    check the runs against R; engine.rekey_window builds them so.
+    ``index``: int32 [rows] on the rings' device, as ``window_join`` writes
+    it; tc_ring, hbm_ring: int8 [R, K]. The kernel does not check the index
+    against R. On the CPU the plain version moves the rings by the index's
+    runs (``gather_runs``), as ``engine.rekey_window`` moves them there.
     """
     if tc_ring.dim() != 2:
         raise ValueError(f"rings must be 2-D [rows, chunks], got {tuple(tc_ring.shape)}")
-    if runs.dim() != 2 or runs.shape[0] != 2:
-        raise ValueError(f"runs must be [2, M], got {tuple(runs.shape)}")
+    if index.dim() != 1:
+        raise ValueError(f"index must be 1-D, got {tuple(index.shape)}")
     R, chunks = tc_ring.shape
+    rows = index.shape[0]
     device = _check({"tc_ring": (tc_ring, torch.int8, (R, chunks)),
                      "hbm_ring": (hbm_ring, torch.int8, (R, chunks)),
-                     "runs": (runs, torch.int32, (2, runs.shape[1]))})
-    if rows and not runs.shape[1]:
-        raise ValueError("runs must cover the rows out")
+                     "index": (index, torch.int32, (rows,))})
     if device.type == "cpu":
-        return window_gather_plain(tc_ring, hbm_ring, runs, rows)
+        return window_gather_plain(tc_ring, hbm_ring, torch.from_numpy(gather_runs(index)), rows)
     tc_out = torch.empty((rows, chunks), dtype=torch.int8, device=device)
     hbm_out = torch.empty_like(tc_out)
     if not rows or not chunks:  # a grid of no blocks is a launch error
@@ -585,9 +604,87 @@ def window_gather(tc_ring, hbm_ring, runs, rows: int):
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.tp_window_gather(tc_ring.data_ptr(), hbm_ring.data_ptr(), runs.data_ptr(),
-                                      runs.shape[1], tc_out.data_ptr(), hbm_out.data_ptr(), rows,
-                                      chunks, stream)
+        status = lib.tp_window_gather(tc_ring.data_ptr(), hbm_ring.data_ptr(), index.data_ptr(),
+                                      tc_out.data_ptr(), hbm_out.data_ptr(), rows, chunks, stream)
     _build.check(status, "tp_window_gather")
     LAUNCHES["window_gather"] += 1
     return tc_out, hbm_out
+
+
+class CardRows(NamedTuple):
+    """A streaming window's row keys on the card, as ``window_join`` leaves
+    them for the next call: ``keys`` (int64, 1-D) holds the last cycle's
+    ``present`` chips' keys at ``[0, present)``, the ``kept`` kept rows'
+    keys at ``[present, present + kept)`` and their last-seen cycles at
+    ``[seen_at, seen_at + kept)``."""
+
+    keys: torch.Tensor
+    present: int
+    kept: int
+    seen_at: int
+
+
+class Joined(NamedTuple):
+    """window_join's buffers, filled once the stream reaches the call's end."""
+
+    keys: torch.Tensor   # int64 [C + 2 R] on the card: this cycle's keys, then from C on
+    #                      the kept rows' keys, from C + R on their cycles
+    index: torch.Tensor  # int32 [C + R] on the card: each row out's old row, or -1
+    host: torch.Tensor   # int64 [JOIN_COUNTS + 2 R + C], pinned: {flags (1 the chips'
+    #                      keys repeat, 2 the rows'), new, retained, dropped, moved}; from
+    #                      JOIN_COUNTS on the kept rows' keys, from JOIN_COUNTS + R their
+    #                      cycles; from JOIN_COUNTS + 2 R this cycle's keys, as they went up
+
+
+def window_join(rows: CardRows, keys, prev_cycle: int, cycle: int, num_chunks: int) -> Joined:
+    """The streaming window's key join on the card (``tp_window_join``): a
+    hash join of this cycle's chips (``keys``, int64 [C] on the host) with
+    the window's rows (``rows``: the last cycle's chips, seen in
+    ``prev_cycle``, then the kept rows), in one copy of ``keys`` up from
+    pinned memory, one memset and up to three kernels, with no wait. The
+    rows out are the chips, each at its old row or new, then the rows of
+    absent chips with ``cycle - seen < num_chunks``, in row order; the
+    result is ``engine.rekey_plain``'s, and ``CardRows(Joined.keys, C,
+    retained, C + R)`` the rows out for the next call. The host reads
+    ``Joined.host`` after it waits for the stream; where a flag is set the
+    rest is not defined.
+
+    The join has no plain PyTorch version beside it: on the CPU, ``engine``
+    joins on the host (``rekey_plain`` or the native join).
+    """
+    t = rows.keys
+    if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+        raise TypeError(f"the rows' keys must be contiguous 1-D int64, got {t.dtype} "
+                        f"{tuple(t.shape)}")
+    if t.device.type != "cuda":
+        raise ValueError("window_join runs on the card; on the CPU the join is the host's "
+                         "(engine.rekey_plain)")
+    P, Q = rows.present, rows.kept
+    if min(P, Q) < 0 or P + Q > t.numel() or not P + Q <= rows.seen_at <= t.numel() - Q:
+        raise ValueError(f"rows of {P} + {Q} keys, cycles from {rows.seen_at}, in {t.numel()}")
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    if keys.ndim != 1:
+        raise ValueError(f"keys must be 1-D, got {keys.shape}")
+    R, C = P + Q, len(keys)
+    if R + C + 1 > 2**31 - 1:
+        raise ValueError(f"{R} rows and {C} chips: the join indexes them in int32")
+    lib = _build.load()
+    # one buffer on the card: the keys (this cycle's, then the kept rows'
+    # keys and cycles), the index, the scratch
+    at_index = 8 * (C + 2 * R)
+    at_scratch = at_index + -(-4 * (C + R) // 16) * 16
+    scratch = lib.tp_window_join_scratch(R, C)
+    buf = torch.empty(at_scratch + scratch, dtype=torch.uint8, device=t.device)
+    host = torch.empty(JOIN_COUNTS + 2 * R + C, dtype=torch.int64, pin_memory=True)
+    host[JOIN_COUNTS + 2 * R:].copy_(torch.from_numpy(keys))  # on the host's threads
+    at, rows_at, host_at = buf.data_ptr(), t.data_ptr(), host.data_ptr()
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tp_window_join(
+            rows_at, P, int(prev_cycle), rows_at + 8 * P, rows_at + 8 * rows.seen_at, Q,
+            host_at + 8 * (JOIN_COUNTS + 2 * R), at, C, int(cycle), int(num_chunks),
+            at + at_scratch, scratch, at + at_index, at + 8 * C, host_at, stream)
+    _build.check(status, "tp_window_join")
+    LAUNCHES["window_join"] += 1
+    return Joined(buf[:at_index].view(torch.int64),
+                  buf[at_index:at_index + 4 * (C + R)].view(torch.int32), host)
