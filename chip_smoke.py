@@ -60,7 +60,13 @@ exits non-zero on failure:
    the host's joins it replaces (native and plain) and rekey_window on the
    card on the host's clock with its device operations, at the cell's shape
    (263,000 rows, 260,000 chips, 3,000 new in 1,500 places), its burst and
-   1,048,576 rows (join_rows);
+   1,048,576 rows (join_rows); the policy sweep's pass and slice reduction
+   (each against its plain version first) warm and cold beside their
+   bounds, evaluate_fleet_sweep whole, and the port's only other way to the
+   same answers, evaluate_fleet once a policy on suffix views of the
+   window, at the sweep-260k-t1440-d8h8 cell's cluster (260,000 x 1,440
+   under its 64-policy grid, and under one policy) and at 1,048,576 x 360 in
+   65,536 groups of 16 under 64 policies (sweep_rows);
    and the f32 designs for each T of f32_timing_t(C) at the three sizes
    (rows of 1 to 2,880 samples; the long-row design also at its other
    samples a lane), and where the plan's design was not the fastest.
@@ -74,8 +80,8 @@ XL times under "xl" (the int8 kernel also its T = 12 times under "window"
 and its sweep under "design_sweep", the f32 kernel its times at the dump's
 width and its sweep under "dump", the slice gate, which has no Pallas
 counterpart, its other fleets and sweep under "fleets", and the scatter
-reduction, the row gather and the key join, which have none either, their
-shapes under "fleets"); the line
+reduction, the row gather, the key join and the sweep's two kernels, which
+have none either, their shapes under "fleets"); the line
 before it is {"end_to_end": {...}}, the end-to-end times at both sizes; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -94,17 +100,19 @@ import numpy as np
 import torch
 
 from port_bench.work import HBM_BYTES_PER_S
+from port_bench import gen, sweep, work_sweep
 from tpu_pruner_torch.policy import (
-    _build, chip_pass, chip_pass_plain, chip_pass_q, chip_pass_q_plain, evaluate_fleet,
-    evaluate_fleet_c, evaluate_fleet_qc, evaluate_fleet_qu, evaluate_window_qc,
-    evaluate_window_qu, init_window, make_example_fleet, quantize_fleet_inputs, slice_bounds,
-    update_window, update_window_)
+    PolicyParams, _build, chip_pass, chip_pass_plain, chip_pass_q, chip_pass_q_plain,
+    evaluate_fleet, evaluate_fleet_c, evaluate_fleet_qc, evaluate_fleet_qu, evaluate_fleet_sweep,
+    evaluate_window_qc, evaluate_window_qu, init_window, make_example_fleet, params_array,
+    quantize_fleet_inputs, slice_bounds, sweep_grid, update_window, update_window_)
 from tpu_pruner_torch.policy.engine import _rekey_native, rekey_plain, rekey_window
 from tpu_pruner_torch.policy.kernels import (
     _F32_GROUPS_K, _F32_LONG_K, _Q_ROWS_T, F32_DESIGNS, JOIN_COUNTS, CardRows, PlanLong, PlanRows,
     _choose_plan_q, _f32_plans, _launch_f32, _launch_q, _plan_q, _plan_q_rows, _sm_count,
-    gather_runs, slice_gate, slice_gate_plain, slice_scatter, slice_scatter_plain, window_gather,
-    window_gather_plain, window_join)
+    gather_runs, slice_gate, slice_gate_plain, slice_scatter, slice_scatter_plain, sweep_pass,
+    sweep_pass_plain, sweep_scatter, sweep_scatter_plain, window_gather, window_gather_plain,
+    window_join)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from torch_kernel_cases import (  # noqa: E402
@@ -133,7 +141,12 @@ KERNEL_SYMBOLS = {"chip_pass_q": "chip_pass_q_kernel",
                   "window_gather, bytes": "window_gather_kernelIhE",
                   "window_join, build": "join_build_kernel",
                   "window_join, probe": "join_probe_kernel",
-                  "window_join, compaction": "join_compact_kernel"}
+                  "window_join, compaction": "join_compact_kernel",
+                  "sweep_pass": "sweep_pass_kernel",
+                  "sweep_scatter marks, int32 ids": "sweep_marks_kernelIiE",
+                  "sweep_scatter marks, int64 ids": "sweep_marks_kernelIlE",
+                  "sweep_scatter slices": "sweep_slices_kernel",
+                  "sweep_scatter chips, int32 ids": "sweep_chips_kernelIiE"}
 # templated kernels: name -> (symbol pattern, the instantiations the plan uses)
 INSTANTIATIONS = {
     "chip_pass_q, row design, T": (r"chip_pass_q_rows_kernelILi(\d+)E", _Q_ROWS_T),
@@ -766,6 +779,98 @@ def join_rows(dev, flush: torch.Tensor) -> dict:
     return out
 
 
+SWEEP_REPLACES = ("none: the reference judges one policy a call (evaluate_fleet); "
+                  "engine.evaluate_fleet_sweep judges a grid of up to 64 in one pass")
+
+
+def sweep_fleets() -> dict:
+    """name -> (configuration, durations in minutes, thresholds) of phase 4's
+    sweeps: the sweep cell's cluster under its grid and under one policy,
+    and 1,048,576 chips x 360 samples in 65,536 groups of 16 under 64."""
+    root = Path(__file__).resolve().parent / "port_bench"
+    cell = json.loads((root / "configs" / "gke-65k-policy-sweep.json").read_text())
+    xl = dict(cell, chips=XL_CHIPS, slices=XL_SLICES, groups=[[XL_SLICES, XL_CHIPS // XL_SLICES]],
+              window_samples=SAMPLES, durations_min=[45 * k for k in range(1, 9)])
+    return {
+        f"{cell['chips']}x{cell['window_samples']}, P=64": (
+            cell, cell["durations_min"], cell["hbm_thresholds"]),
+        f"{cell['chips']}x{cell['window_samples']}, P=1": (
+            cell, [cell["window_samples"]], [0.05]),
+        f"{XL_CHIPS}x{SAMPLES}, P=64": (xl, xl["durations_min"], cell["hbm_thresholds"]),
+    }
+
+
+def sweep_rows(dev, flush: torch.Tensor) -> dict:
+    """Phase 4's policy sweep at each shape of sweep_fleets: {name: {"sweep_pass": row,
+    "sweep_scatter": row}}, and evaluate_fleet_sweep's and the one-policy
+    path's times on each pass row."""
+    root = Path(__file__).resolve().parent / "port_bench"
+    mix = json.loads((root / "traffic" / "sweep-d8h8.json").read_text())
+    rows, drawn = {}, None
+    for name, (cfg, minutes, thresholds) in sweep_fleets().items():
+        C, S, T = cfg["chips"], cfg["slices"], cfg["window_samples"]
+        if drawn is None or drawn[0] is not cfg:
+            drawn = None
+            torch.cuda.empty_cache()
+            fleet = sweep.make_fleet(cfg, mix, 2**31 + 2513, dev)
+            g = gen.generator(2**31 + 2513, dev, 2)
+            parts = [sweep.samples(fleet, mix, g, T, r0, min(C, r0 + 65536))
+                     for r0 in range(0, C, 65536)]
+            arrays = [torch.cat([p[k] for p in parts]) for k in range(3)]
+            del parts
+            drawn = (cfg, *arrays, fleet.age, fleet.slice_id)
+        _, tc, hbm, valid, age, ids = drawn
+        grid = sweep_grid([60.0 * m for m in minutes], thresholds, 300.0, 60.0, T)
+        P, n_max = grid.num_policies, int(grid.samples.max())
+        args = (grid.samples, grid.lookback_s, grid.cutoffs)
+        masks = sweep_pass(tc, hbm, valid, age, *args)
+        check(torch.equal(masks, sweep_pass_plain(tc, hbm, valid, age, *args)),
+              f"sweep_pass differs from the plain version at {name}")
+        got = sweep_scatter(masks, ids, S, P)
+        want = sweep_scatter_plain(masks, ids, S, P)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"sweep_scatter differs from the plain version at {name}")
+        pass_bytes = C * n_max * 9 + C * 4 + P * 12 + C * 8
+        scatter_bytes = C * 8 + ids.nbytes + S * 8 + P * 16
+        out = {}
+        for kernel, fn, nbytes in (
+                ("sweep_pass", lambda: sweep_pass(tc, hbm, valid, age, *args), pass_bytes),
+                ("sweep_scatter", lambda: sweep_scatter(masks, ids, S, P), scatter_bytes)):
+            ms, ms_cold = time_fn(fn), time_fn(fn, flush)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            out[kernel] = {"name": kernel, "route": "cuda", "source": SOURCE,
+                           "replaces": SWEEP_REPLACES, "pallas_counterpart": None, "ms": ms,
+                           "ms_cold": ms_cold, "bound_ms": bound, "bound_by": "bytes",
+                           "library_ms": None, "bytes": nbytes, "chips": C, "samples": T,
+                           "slices": S, "policies": P, "max_abs_err": 0}
+            log(f"phase 4: {name}: {kernel} {ms:.4f} ms warm, {ms_cold:.4f} ms cold, bound "
+                f"{bound:.4f} ms ({nbytes} bytes, {bound / ms:.3f} of it warm, "
+                f"{bound / ms_cold:.3f} cold)")
+        whole = lambda: evaluate_fleet_sweep(tc, hbm, valid, age, ids, grid, S)  # noqa: E731
+        params = [params_array(PolicyParams(lookback_s=float(grid.lookback_s[p // len(thresholds)]),
+                                            hbm_threshold=thresholds[p % len(thresholds)]),
+                               device=dev) for p in range(P)]
+        windows = [int(grid.samples[p // len(thresholds)]) for p in range(P)]
+
+        def one_by_one():
+            for n, parr in zip(windows, params):
+                evaluate_fleet(tc[:, -n:], hbm[:, -n:], valid[:, -n:], age, ids, parr, S)
+
+        total = work_sweep.sweep_bytes(C, n_max, S, P)
+        out["sweep_pass"].update(
+            whole_ms=time_fn(whole), whole_ms_cold=time_fn(whole, flush),
+            whole_bound_ms=total / HBM_BYTES_PER_S * 1e3, whole_bytes=total,
+            plain_ms=time_fn(one_by_one), plain_path="evaluate_fleet a policy, suffix views")
+        r = out["sweep_pass"]
+        log(f"phase 4: {name}: evaluate_fleet_sweep {r['whole_ms']:.4f} ms warm, "
+            f"{r['whole_ms_cold']:.4f} ms cold (bound {r['whole_bound_ms']:.4f} ms, "
+            f"{total} bytes); evaluate_fleet once a policy on suffix views {r['plain_ms']:.4f} ms")
+        rows[name] = out
+    del drawn
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_dump_width(dev, flush: torch.Tensor) -> dict:
     """Phase 4 at an audit dump's width, 8 samples a chip: the f32 pass in
     each design at 32,768, 131,072 and 1,048,576 chips, warm and cold, beside
@@ -892,6 +997,10 @@ def main() -> int:
     rows["window_gather"] = {**next(iter(gathers.values())), "fleets": gathers}
     joins = join_rows(dev, flush)
     rows["window_join"] = {**next(iter(joins.values())), "fleets": joins}
+    sweeps = sweep_rows(dev, flush)
+    for name in ("sweep_pass", "sweep_scatter"):
+        shapes = {k: v[name] for k, v in sweeps.items()}
+        rows[name] = {**next(iter(shapes.values())), "fleets": shapes}
     print(json.dumps({"end_to_end": {f"{CHIPS} chips": end_to_end,
                                      f"{XL_CHIPS} chips": xl_end_to_end}}))
     print(json.dumps({"kernels": list(rows.values())}))

@@ -435,3 +435,174 @@ def test_reader_reads_stdin_as_the_reference_does(tmp_path, escaped):
         outs.append((proc.stdout, proc.stderr))
     assert outs[0] == outs[1]
     assert json.loads(outs[1][0])["reclaimable_slices"] == ["ml/idle"]
+
+
+# -- --sweep: a grid of policies over a dump of raw samples ---------------------
+
+
+def sweep_case(seed=3, slices=24, step_s=60.0):
+    """A dump of 4-chip groups whose series are placed in time, as
+    tpu_pruner_torch.dump writes them: 60 steps a chip, the last the newest,
+    null at a step with no sample; and the samples as they lie in time,
+    (tc, hbm, valid, age, slice_id) in the dump's order. Groups are idle
+    since a random step, some with one busy sample, each chip with one HBM
+    sample of 0, 0.01 or 0.03, ages around the grid's gates; and where
+    reading a series as right-aligned, or a null as a sample, would turn a
+    verdict: every 7th group is idle throughout but one chip stopped
+    reporting 7 steps ago (no data in the 5-minute window); of every 5th,
+    idle for 16 steps, one chip missed the 3 scrapes around the 15-minute
+    window's edge; of every 3rd, one chip has 4 steps with no hbm sample,
+    newer than its HBM sample, which lies just outside the 15-minute window.
+    ``step_s`` is stamped unless None."""
+    rng = np.random.default_rng(seed)
+    C, T = 4 * slices, 60
+    tc = np.zeros((C, T), np.float32)
+    hbm = np.zeros((C, T), np.float32)
+    valid = np.ones((C, T), bool)
+    hbm_given = np.ones((C, T), bool)
+    age = np.zeros(C, np.float32)
+    for s in range(slices):
+        stopped, gapped = s % 7 == 0, s % 5 == 1 and s % 7
+        since = 70 if stopped else 16 if gapped else int(rng.integers(1, 70))
+        for c in range(4):
+            i = 4 * s + c
+            tc[i, :max(0, T - since)] = 0.4
+            if s % 5 == 0 and c == 1 and not stopped:
+                tc[i, int(rng.integers(0, T))] = 0.3
+            hbm[i, int(rng.integers(0, T))] = [0.0, 0.01, 0.03][s % 3]
+            age[i] = 9999.0 if stopped or gapped else rng.choice([600.0, 1500.0, 3900.0, 9999.0])
+            if stopped and c == 3:
+                valid[i, T - 7:] = hbm_given[i, T - 7:] = False
+            if gapped and c == 2:
+                valid[i, 44:47] = hbm_given[i, 44:47] = False
+            if s % 3 == 2 and c == 0:
+                hbm[i] = 0.0
+                hbm[i, 43] = 0.03
+                hbm_given[i, 50:54] = False
+    tc[~valid] = 0.0
+    hbm[~hbm_given] = 0.0
+    chips = [chip(f"ml/js-{i // 4}",
+                  [float(v) if ok else None for v, ok in zip(tc[i], valid[i])],
+                  hbm=[float(v) if ok else None for v, ok in zip(hbm[i], hbm_given[i])],
+                  age=float(age[i]), chip_id=f"c{i % 4}") for i in range(C)]
+    doc = {"lookback_s": 2100, "chips": chips}
+    if step_s is not None:
+        doc["step_s"] = step_s
+    return doc, (tc, hbm, valid, age, np.arange(C, dtype=np.int32) // 4)
+
+
+def sweep_dump(**kwargs):
+    return sweep_case(**kwargs)[0]
+
+
+SWEEP_KEYS = ["duration=5m,15,3600s", "hbm_threshold=0,0.02,0.05", "grace=10m"]
+
+
+def test_sweep_table_and_json_match_the_reference(tmp_path):
+    from port_bench.reference import sweep as ref
+
+    path = tmp_path / "sweep.json"
+    path.write_text(json.dumps(sweep_dump()))
+    line, err = run_in_process(torch_analyze.main,
+                               [str(path), "--device", "cpu", "--sweep", *SWEEP_KEYS])
+    got = json.loads(line)
+    # the reference on the samples at their true steps
+    tc, hbm, valid, age, slice_id = sweep_case()[1]
+    slices, chips, counts = ref.sweep([(tc, hbm, valid)], age, slice_id, 24,
+                                      [300.0, 900.0, 3600.0], [0.0, 0.02, 0.05], 600.0, 60.0)
+    assert got["num_chips"] == 96 and got["num_slices"] == 24 and got["window_samples"] == 60
+    assert got["step_s"] == 60.0 and got["grace_s"] == 600.0
+    assert [(p["duration_s"], p["hbm_threshold"], p["lookback_s"]) for p in got["policies"]] == [
+        (d, t, d + 600.0) for d in (300.0, 900.0, 3600.0) for t in (0.0, 0.02, 0.05)]
+    assert [[p["reclaimable_slices"], p["reclaimable_chips"]] for p in got["policies"]] == \
+        counts.tolist()
+    assert [p["idle_chips"] for p in got["policies"]] == [
+        int(((chips >> p) & 1).sum()) for p in range(9)]
+    assert len(set(counts[:, 0].tolist())) > 2  # the policies disagree
+    rows = err.strip().splitlines()
+    assert rows[0].split() == ["duration", "grace", "hbm_threshold", "slices", "chips", "idle",
+                               "chips"]
+    assert [r.split()[:5] for r in rows[1:]] == [
+        [f"{d}m", "600s", t, str(n[0]), str(n[1])]
+        for (d, t), n in zip([(d, t) for d in (5, 15, 60) for t in ("0", "0.02", "0.05")],
+                             counts.tolist())]
+
+
+def test_sweep_needs_the_dumps_step(tmp_path):
+    path = tmp_path / "nostep.json"
+    path.write_text(json.dumps(sweep_dump(step_s=None)))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as exc:
+        torch_analyze.main([str(path), "--device", "cpu", "--sweep", *SWEEP_KEYS])
+    assert "carries no step_s" in str(exc.value.code) and "--step-s" in str(exc.value.code)
+    given, _ = run_in_process(torch_analyze.main, [str(path), "--device", "cpu", "--step-s",
+                                                   "60", "--sweep", *SWEEP_KEYS])
+    stamped = tmp_path / "step.json"
+    stamped.write_text(json.dumps(sweep_dump()))
+    assert given == run_in_process(torch_analyze.main, [str(stamped), "--device", "cpu",
+                                                        "--sweep", *SWEEP_KEYS])[0]
+    with pytest.raises(SystemExit, match="window holds 1 to 60"):
+        torch_analyze.main([str(stamped), "--device", "cpu", "--sweep", "duration=61"])
+
+
+def test_sweep_refuses_series_not_placed_in_time(tmp_path):
+    """A dump whose series are listed as they came, shorter where a chip
+    missed scrapes, cannot say when each sample was taken: --sweep refuses
+    it, where the one-policy audit right-aligns it as before."""
+    doc = sweep_dump()
+    for c in doc["chips"]:
+        for key in ("tc", "hbm"):
+            c[key] = [v for v in c[key] if v is not None]
+    path = tmp_path / "listed.json"
+    path.write_text(json.dumps(doc))
+    with pytest.raises(SystemExit) as exc:
+        torch_analyze.main([str(path), "--device", "cpu", "--sweep", *SWEEP_KEYS])
+    assert "placed in time, 60 samples each" in str(exc.value.code)
+    assert "16 of 96 chips" in str(exc.value.code)  # 4 stopped, 4 with gaps, 8 without hbm
+    run_in_process(torch_analyze.main, [str(path), "--device", "cpu"])
+
+
+def test_sweep_warns_where_no_pod_passes_a_policys_age_gate(tmp_path):
+    path = tmp_path / "sweep.json"
+    path.write_text(json.dumps(sweep_dump()))
+    line, err = run_in_process(torch_analyze.main, [
+        str(path), "--device", "cpu", "--sweep", "duration=15m,1h", "grace=6340"])
+    # the oldest pod is 9,999 s old: 3,600 + 6,340 = 9,940 passes, 9,999 + 1 would not
+    assert "WARNING" not in err
+    line, err = run_in_process(torch_analyze.main, [
+        str(path), "--device", "cpu", "--sweep", "duration=15m,1h", "grace=6400"])
+    assert "no pod is old enough for duration 3600 s + grace 6400 s" in err
+    assert "oldest is 9999 s" in err
+    assert [p["reclaimable_chips"] for p in json.loads(line)["policies"]][1] == 0
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--sweep", "duration=" + ",".join(str(m) for m in range(1, 14)),
+      "hbm_threshold=0,0.01,0.02,0.03,0.05"], "at most 64 policies"),
+    (["--sweep", "hbm_threshold=0.05"], "needs duration="),
+    (["--sweep", "duration=5", "lookback=10m"], "--sweep takes duration="),
+    (["--sweep", "duration=5", "grace=300,600"], "one grace"),
+    (["--sweep", "duration=5", "--stream", "state.npz"], "does not apply with --stream"),
+    (["--step-s", "60"], "--step-s only applies with --sweep"),
+], ids=["65-policies", "no-duration", "unknown-key", "two-graces", "with-stream", "step-alone"])
+def test_sweep_refusals(argv, message):
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as exc:
+        torch_analyze.main(["dump.json", *argv])
+    assert exc.value.code == 2 and message in err.getvalue()
+
+
+def test_sweep_under_profile_shows_its_span_and_counters(tmp_path):
+    path = tmp_path / "sweep.json"
+    path.write_text(json.dumps(sweep_dump()))
+    plain, _ = run_in_process(torch_analyze.main,
+                              [str(path), "--device", "cpu", "--sweep", *SWEEP_KEYS])
+    line, err = run_in_process(torch_analyze.main, [
+        str(path), "--device", "cpu", "--profile", str(tmp_path / "trace.json"),
+        "--sweep", *SWEEP_KEYS])
+    assert line == plain  # stdout as without the flag
+    spans = {row.split()[0]: int(row.split()[1]) for row in err.splitlines()
+             if row.split() and row.split()[0].startswith(("analyze.", "engine."))}
+    assert spans["engine.sweep"] == 1 and spans["analyze.evaluate"] == 1
+    counters = err.split("counters: ", 1)[1].splitlines()[0]
+    assert "sweep_policies 9" in counters and "sweep_window_passes 1" in counters

@@ -2,11 +2,14 @@
 
 ``build_dump`` of both packages gets the same range series; ``main()`` of
 both runs against one local ``/api/v1/query_range`` server. The dumps must
-be equal apart from ``timestamp`` (the export's wall clock), and exit
-codes and stderr equal once the port's module name is read as the
+be equal apart from ``timestamp`` (the export's wall clock) and the port's
+two additions, ``step_s`` (the samples' spacing, which the reference does
+not stamp) and the nulls that place its ``main()``'s series in time, and
+exit codes and stderr equal once the port's module name is read as the
 reference's.
 """
 
+import copy
 import json
 import re
 import subprocess
@@ -20,6 +23,7 @@ import pytest
 from test_torch_reports import normalize_stderr, run_cli
 from tpu_pruner import dump as ref_dump
 from tpu_pruner.native import REPO_ROOT
+from tpu_pruner_torch import analyze as torch_analyze
 from tpu_pruner_torch import dump as port_dump
 
 
@@ -71,11 +75,43 @@ def test_build_dump_matches_reference(case):
     ref = ref_dump.build_dump(*args)
     # as JSON text: key order counts, and a NaN sample equals itself
     assert json.dumps(without_timestamp(got)) == json.dumps(without_timestamp(ref))
+    stamped = port_dump.build_dump(*args, step_s=60.0)
+    assert list(stamped)[:2] == ["lookback_s", "step_s"] and stamped["step_s"] == 60.0
+    assert json.dumps(without_timestamp(stamped)) == json.dumps(
+        {"lookback_s": got["lookback_s"], "step_s": 60.0, **without_timestamp(got)})
     if case == "tc_and_hbm":
         ids = [c["id"] for c in got["chips"]]
         assert "ml/trainer-1/3" in ids and "ml/trainer-1/2" in ids
         assert next(c for c in got["chips"] if c["id"] == "ml/trainer-1/3")["hbm"] == [0.2, 0.3]
         assert [c["slice"] for c in got["chips"]][-2:] == ["web/solo", "web/odd"]
+
+
+def test_build_dump_places_each_sample_at_its_step():
+    """With the window's start and steps, a sample lands at its step and a
+    step with none is null, in tc and hbm apart: a gap, a series that
+    stopped, one that started late, timestamps a few ms off the step, and
+    one off the window."""
+    start, step = 1_000_000.5, 60.0
+
+    def at(*pairs, **labels):
+        return {"metric": {"namespace": "ml", "accelerator_id": "0", **labels},
+                "values": [[start + step * k + jitter, str(v)] for k, v, jitter in pairs]}
+
+    tc = [at((0, 0.0, 0), (1, 0.5, 0.001), (3, 0.0, -0.002), (5, 0.25, 0), pod="gap"),
+          at((0, 0.0, 0), (1, 0.0, 0), pod="stopped"),
+          at((4, 0.0, 0), (5, 0.0, 0), (6, 1.0, 0), pod="late")]
+    hbm = [at((1, 0.1, 0), (2, 0.2, 0), (5, 0.5, 0), pod="gap"),
+           at((-1, 0.9, 0), (0, 0.3, 0), pod="stopped")]
+    doc = port_dump.build_dump(tc, hbm, JOBSET, 7200, 360, step, start, 6)
+    got = {c["id"]: (c["tc"], c.get("hbm")) for c in doc["chips"]}
+    assert got == {
+        "ml/gap/0": ([0.0, 0.5, None, 0.0, None, 0.25], [None, 0.1, 0.2, None, None, 0.5]),
+        "ml/stopped/0": ([0.0, 0.0, None, None, None, None], [0.3, None, None, None, None, None]),
+        "ml/late/0": ([None, None, None, None, 0.0, 0.0], None)}
+    assert doc["step_s"] == step
+    # without the window, as the reference lists them
+    assert port_dump.build_dump(tc, hbm, JOBSET, 7200, 360, step)["chips"][0]["tc"] == [
+        0.0, 0.5, 0.0, 0.25]
 
 
 def test_label_matches_reference():
@@ -84,9 +120,33 @@ def test_label_matches_reference():
         assert port_dump._label(metric, "pod") == ref_dump._label(metric, "pod")
 
 
+def steps_of(start: float, end: float, step: float) -> int:
+    """The evaluation times of query_range: start, start + step, ... <= end."""
+    return (round(end * 1000) - round(start * 1000)) // round(step * 1000) + 1
+
+
+def rebased(answer, params):
+    """``answer`` with each series' timestamps moved onto the request's steps,
+    its last value at the newest step, as Prometheus answers for a series
+    scraped up to now."""
+    result = (answer.get("data") or {}).get("result")
+    if not isinstance(result, list) or "start" not in params:
+        return answer
+    start, end = float(params["start"][0]), float(params["end"][0])
+    step = float(params["step"][0])
+    steps = steps_of(start, end, step)
+    answer = copy.deepcopy(answer)
+    for series in answer["data"]["result"]:
+        values = series.get("values", [])
+        series["values"] = [[start + step * (steps - len(values) + i), v]
+                            for i, (_, v) in enumerate(values)]
+    return answer
+
+
 class QueryRange:
-    """A Prometheus stand-in answering /api/v1/query_range by query text;
-    records each request's query and Authorization header."""
+    """A Prometheus stand-in answering /api/v1/query_range by query text,
+    each series' samples at the request's newest steps; records each
+    request's query and Authorization header."""
 
     def __init__(self, answers):
         self.requests = []
@@ -102,8 +162,8 @@ class QueryRange:
                 query = params.get("query", [""])[0]
                 srv.requests.append((url.path, query, self.headers.get("Authorization"),
                                      params.get("step", [""])[0]))
-                body = json.dumps(answers.get(query, {"status": "error",
-                                                      "error": f"unknown {query}"})).encode()
+                answer = answers.get(query, {"status": "error", "error": f"unknown {query}"})
+                body = json.dumps(rebased(answer, params)).encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
@@ -157,6 +217,19 @@ MAIN_CASES = {
 }
 
 TIMESTAMP = re.compile(r'"timestamp": [0-9.e+-]+')
+STEP = re.compile(r'"step_s": ([0-9.e+-]+), ')
+
+
+def without_nulls(text: str) -> str:
+    """A dump's text with its nulls (steps with no sample) taken out of each
+    series and ``step_s`` out of the document."""
+    doc = json.loads(text)
+    doc.pop("step_s", None)
+    for chip in doc["chips"]:
+        for key in ("tc", "hbm"):
+            if key in chip:
+                chip[key] = [v for v in chip[key] if v is not None]
+    return json.dumps(doc)
 
 
 @pytest.mark.parametrize("case", sorted(MAIN_CASES))
@@ -169,7 +242,28 @@ def test_main_matches_reference(prom, monkeypatch, case):
     middle = len(prom.requests)
     got = run_cli(port_dump.main, argv)
     assert got[0] == ref[0]
-    assert TIMESTAMP.sub("T", got[1]) == TIMESTAMP.sub("T", ref[1])
+    assert bool(got[1]) == bool(ref[1])
+    if got[1]:
+        # the port stamps --step-s on its document, after lookback_s, and
+        # places each sample at its step: every series spans the window, the
+        # steps before a series' first sample null
+        assert (TIMESTAMP.sub("T", without_nulls(got[1]))
+                == TIMESTAMP.sub("T", without_nulls(ref[1])))
+        step = argv[argv.index("--step-s") + 1] if "--step-s" in argv else "300"
+        window = argv[argv.index("--window-s") + 1] if "--window-s" in argv else "2100"
+        assert STEP.findall(got[1]) == [str(float(step))]
+        doc = json.loads(got[1])
+        assert list(doc)[:2] == ["lookback_s", "step_s"]
+        steps = int(float(window) // float(step)) + 1
+        if doc["chips"]:  # placed in time, as analyze --sweep takes them
+            assert torch_analyze.ragged_chips(doc) == 0
+        for chip, want in zip(doc["chips"], json.loads(ref[1])["chips"], strict=True):
+            for key in ("tc", "hbm"):
+                if key in want:
+                    n = len(want[key])
+                    assert chip[key][:steps - n] == [None] * (steps - n)
+                    assert json.dumps(chip[key][steps - n:]) == json.dumps(want[key])
+                    assert len(chip[key]) == steps
     assert normalize_stderr(got[2], "dump") == normalize_stderr(ref[2], "dump")
     # both sent the same queries, with the bearer token, to query_range
     asked = prom.requests[middle:]
@@ -177,7 +271,8 @@ def test_main_matches_reference(prom, monkeypatch, case):
     assert all(r[0] == "/api/v1/query_range" and r[2] == "Bearer s3cret" for r in asked)
     if case == "percent":
         doc = json.loads(got[1])
-        assert doc["chips"][0]["tc"] == [0.0, 0.5, 0.0] and doc["chips"][0]["hbm"] == [0.125, 0.0]
+        assert doc["chips"][0]["tc"] == [None] * 5 + [0.0, 0.5, 0.0]
+        assert doc["chips"][0]["hbm"] == [None] * 6 + [0.125, 0.0]
     if case == "empty_result_warns":
         assert "returned no pod-keyed series" in got[2] and json.loads(got[1])["chips"] == []
     if case in ("prometheus_error", "not_a_matrix"):

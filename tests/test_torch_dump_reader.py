@@ -138,6 +138,11 @@ CASES = {
         True),
     "printable_ascii": ('{"chips": [{"slice": "%s", "id": "%s", "tc": [0]}]}' % (
         "".join(chr(c) for c in range(0x20, 0x7F) if chr(c) not in '"\\'), "\x7f"), True),
+    "null_in_series": ('{"chips": [{"slice": "s", "tc": [null]}]}', True),
+    "null_samples": (
+        '{"step_s": 60, "chips": [{"slice": "s", "tc": [null, 0.5, null, 0, NaN, null], '
+        '"hbm": [0.1, null, null, 0.2, null, NaN]}, {"slice": "s", "tc": [null, null], '
+        '"hbm": [null]}, {"slice": "t", "tc": [1, 2, 3, 4, 5, 6], "hbm": [null, 1e39]}]}', True),
     "deep_but_within_limit": ('{"x": %s, "chips": [%s]}' % ("[" * 40 + "]" * 40, C2), True),
     # -- what it leaves to json.load ---------------------------------------
     "escape_in_slice": ('{"chips": [{"slice": "ml\\/a", "tc": [0]}, %s]}' % C1, False),
@@ -149,7 +154,6 @@ CASES = {
     "repeated_chip_key": ('{"chips": [{"slice": "a", "tc": [1], "tc": [2, 3]}]}', False),
     "repeated_scalar": ('{"lookback_s": 1, "lookback_s": 2, "chips": [%s]}' % C2, False),
     "bool_in_series": ('{"chips": [{"slice": "s", "tc": [true, 0, false]}]}', False),
-    "null_in_series": ('{"chips": [{"slice": "s", "tc": [null]}]}', False),
     "string_in_series": ('{"chips": [{"slice": "s", "tc": ["0.5"]}]}', False),
     "nested_series": ('{"chips": [{"slice": "s", "tc": [[0.5]]}]}', False),
     "numeric_slice": ('{"chips": [{"slice": 5, "tc": [0]}]}', False),
@@ -254,6 +258,11 @@ def sample_text(rng) -> str:
     return repr(float(rng.random()))
 
 
+def series_text(rng) -> str:
+    """A sample of a series: a number, or now and then null (no sample)."""
+    return "null" if rng.random() < 0.1 else sample_text(rng)
+
+
 def ascii_name(rng, n) -> str:
     alphabet = [chr(c) for c in range(0x20, 0x7F) if chr(c) not in '"\\']
     return "".join(rng.choice(alphabet, size=n))
@@ -268,7 +277,7 @@ def random_dump(rng) -> str:
     chips = []
     for _ in range(rng.integers(1, 40)):
         members = [("slice", json.dumps(slices[rng.integers(len(slices))]))]
-        members.append(("tc", "[" + ", ".join(sample_text(rng) for _ in range(rng.integers(13)))
+        members.append(("tc", "[" + ", ".join(series_text(rng) for _ in range(rng.integers(13)))
                         + "]"))
         if rng.random() < 0.7:
             members.append(("id", json.dumps(ascii_name(rng, rng.integers(0, 4)))))
@@ -278,7 +287,7 @@ def random_dump(rng) -> str:
         if hbm == 1:
             members.append(("hbm", "null"))
         elif hbm >= 2:
-            members.append(("hbm", "[" + ", ".join(sample_text(rng) for _ in
+            members.append(("hbm", "[" + ", ".join(series_text(rng) for _ in
                                                    range(rng.integers(13))) + "]"))
         if rng.random() < 0.3:
             members.append(("x" + ascii_name(rng, 2), '{"{": [1, "},{", {}], "n": null}'))
@@ -295,8 +304,9 @@ def random_dump(rng) -> str:
 
 @pytest.mark.parametrize("seed", range(8))
 def test_random_dumps_match_json_load(tmp_path, seed):
-    """Ragged dumps of every kind of number, in any key order, read in parts
-    of every size (each guess at a chip's start right or wrong)."""
+    """Ragged dumps of every kind of number and null samples, in any key
+    order, read in parts of every size (each guess at a chip's start right
+    or wrong); the ragged chips counted as the dict path counts them."""
     rng = np.random.default_rng(20260 + seed)
     path = tmp_path / "dump.json"
     for _ in range(25):
@@ -307,6 +317,7 @@ def test_random_dumps_match_json_load(tmp_path, seed):
         for part_bytes in (1, 13, 64, 1 << 30):
             scan = dump_reader.scan(text.encode(), part_bytes)
             assert scan is not None, text
+            assert scan.ragged == analyze.ragged_chips(json.loads(text))
             assert_same(outcome(lambda: analyze.load_fleet(scan)), want)
         check(path, taken=True)
 

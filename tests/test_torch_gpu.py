@@ -25,7 +25,7 @@ from torch_kernel_cases import (
     bounds_input_check, engine_input_check, f32_design_cases, f32_edge_fleet, f32_expected_design,
     gate_cases, gate_on, input_cases, int8_design_cases, int8_edge_fleet, int8_on, join_cases,
     launch_counts, q_input_cases, q_input_check, rows_taken, scatter_cases, scatter_fleets,
-    seeded_fleet, stream_chunks)
+    seeded_fleet, stream_chunks, sweep_pass_cases, sweep_scatter_cases)
 from tpu_pruner_torch import analyze, entry, obs
 from tpu_pruner_torch import policy as tp
 from tpu_pruner_torch.analyze import evaluate_loaded
@@ -37,6 +37,8 @@ Q_INPUT_CASES = q_input_cases(98)
 GATE_CASES = gate_cases(77, large=True)
 SCATTER_CASES = scatter_cases(78)
 JOIN_CASES = join_cases()
+SWEEP_PASS_CASES = sweep_pass_cases(91)
+SWEEP_SCATTER_CASES = sweep_scatter_cases(92)
 # (chips, samples, slices) of the engine's paths: a small fleet, and the main
 # path's full width
 FLEETS = [pytest.param((4096, 64, 256), id="4096x64"),
@@ -489,6 +491,14 @@ def test_bad_bounds_on_card_match_cpu(cuda):
     got = tp.rekey_window((*rings, torch.zeros((), dtype=torch.int32, device=cuda)), rows, keys,
                           1).state
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got[:2], want))
+    grid = (np.array([4, 31], np.int32), np.array([0.0, 3000.0], np.float32),
+            np.array([0.05, np.inf], np.float32))
+    masks = kernels.sweep_pass(*f32_pass[:4], *grid)
+    assert torch.equal(masks.cpu(), kernels.sweep_pass_plain(*(x.cpu() for x in f32_pass[:4]),
+                                                             *grid))
+    swept = kernels.sweep_scatter(masks, ids, S, 4)
+    assert all(torch.equal(a.cpu(), b)
+               for a, b in zip(swept, kernels.sweep_scatter_plain(masks.cpu(), ids.cpu(), S, 4)))
     torch.cuda.synchronize()
     assert all(tp.LAUNCHES[k] == before[k] + 1 for k in tp.LAUNCHES), tp.LAUNCHES
 
@@ -977,3 +987,92 @@ def test_rekey_window_at_the_cells_size_matches_cpu(cuda):
                 grew["cpu"]["host_syncs"], grew["cpu"]["d2h_bytes"]) == (0, 1, 0, 0), i
     assert gathers == len(cycles) - 1
     assert states["cuda"][0].shape[0] > len(cycles[-1].keys)  # rows kept for absent chips
+
+
+# --- the policy sweep -----------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SWEEP_PASS_CASES))
+def test_sweep_pass_matches_plain(cuda, case):
+    """The sweep pass on torch_kernel_cases.sweep_pass_cases against its plain
+    version on the CPU, bit for bit, one launch a call."""
+    tc, hbm, valid, age, samples, lookbacks, cutoffs = SWEEP_PASS_CASES[case]
+    cpu = [torch.from_numpy(x) for x in (tc, hbm, valid, age)]
+    want = kernels.sweep_pass_plain(*cpu, samples, lookbacks, cutoffs)
+    before = kernels.LAUNCHES["sweep_pass"]
+    got = kernels.sweep_pass(*(x.to(cuda) for x in cpu), samples, lookbacks, cutoffs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sweep_pass"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SWEEP_SCATTER_CASES))
+def test_sweep_scatter_matches_plain(cuda, case):
+    """The sweep's slice reduction on torch_kernel_cases.sweep_scatter_cases
+    against its plain version on the CPU; one call where it has a chip and a
+    slice, none otherwise."""
+    masks, ids, S, P = SWEEP_SCATTER_CASES[case]
+    want = kernels.sweep_scatter_plain(torch.from_numpy(masks), torch.from_numpy(ids), S, P)
+    before = kernels.LAUNCHES["sweep_scatter"]
+    got = kernels.sweep_scatter(torch.from_numpy(masks).to(cuda), torch.from_numpy(ids).to(cuda),
+                                S, P)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sweep_scatter"] == before + int(S > 0 and ids.size > 0)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_sweep_scatter_large_fleets_match_plain(cuda):
+    """torch_kernel_cases.scatter_fleets' layouts (the gke-65k cluster in host
+    order, with its 50,944-chip group; 1,048,576 shuffled chips; one slice of
+    1,048,576; 1,048,576 one-chip slices), each chip's mask its slice's word
+    with bits lacking where it is busy, at 64 policies."""
+    rng = np.random.default_rng(6)
+    for name, (cand, ids, S) in scatter_fleets(rng).items():
+        words = rng.integers(-2**63, 2**63 - 1, size=S, dtype=np.int64, endpoint=True)
+        lack = np.left_shift(np.int64(1), rng.integers(0, 64, ids.size).astype(np.int64))
+        masks = np.where(cand, words[ids], words[ids] & ~lack)
+        want = kernels.sweep_scatter_plain(torch.from_numpy(masks), torch.from_numpy(ids), S, 64)
+        got = kernels.sweep_scatter(torch.from_numpy(masks).to(cuda),
+                                    torch.from_numpy(ids).to(cuda), S, 64)
+        assert torch.equal(got[0].cpu(), want[0]), name
+        assert torch.equal(got[1].cpu(), want[1]), name
+
+
+@pytest.mark.gpu
+def test_sweep_at_the_cells_size_matches_the_reference(cuda):
+    """evaluate_fleet_sweep at the sweep-260k-t1440-d8h8 cell's size (260,000
+    chips x 1,440 samples in 23,149 groups, drawn on the card as the cell
+    draws them) against port_bench/reference/sweep.py, computed in blocks on
+    the host, under both of its grids; each call one launch of the sweep
+    pass and one call of the slice reduction, and one pass over the
+    window."""
+    from port_bench import gen, sweep
+    from port_bench.reference import sweep as ref
+
+    root = Path(__file__).resolve().parents[1] / "port_bench"
+    cfg = json.loads((root / "configs" / "gke-65k-policy-sweep.json").read_text())
+    mix = json.loads((root / "traffic" / "sweep-d8h8.json").read_text())
+    C, S, T = cfg["chips"], cfg["slices"], cfg["window_samples"]
+    fleet = sweep.make_fleet(cfg, mix, 2**31 + 25, cuda)
+    g = gen.generator(2**31 + 25, cuda, 2)
+    block = mix["block_rows"]
+    parts = [sweep.samples(fleet, mix, g, T, r0, min(C, r0 + block)) for r0 in range(0, C, block)]
+    tc, hbm, valid = (torch.cat([p[k] for p in parts]) for k in range(3))
+    blocks = [tuple(x.cpu().numpy() for x in p) for p in parts]
+    del parts
+    for swept in sweep.grids_of(cfg):
+        before = dict(kernels.LAUNCHES)
+        passes = obs.counts["sweep_window_passes"]
+        got = tp.evaluate_fleet_sweep(tc, hbm, valid, fleet.age, fleet.slice_id, swept, S)
+        got = [x.cpu() for x in got]
+        assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
+            **dict.fromkeys(before, 0), "sweep_pass": 1, "sweep_scatter": 1}
+        assert obs.counts["sweep_window_passes"] == passes + 1
+        want = ref.sweep(blocks, fleet.age.cpu().numpy(), fleet.slice_id.cpu().numpy(), S,
+                         swept.durations_s, swept.hbm_thresholds, swept.grace_s, swept.step_s)
+        for got_x, want_x, what in zip(got, want, ("slices", "chips", "counts")):
+            assert torch.equal(got_x, want_x), (swept.grace_s, what)
+        assert 0 < int(got[2][:, 0].sum()) and int(got[2][:, 0].max()) < S

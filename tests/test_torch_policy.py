@@ -366,7 +366,8 @@ def test_chip_pass_wrappers_validate_inputs():
     np.testing.assert_array_equal(
         got.numpy(), tp.chip_pass_plain(t_tc, t_hbm, t_valid, t_age, params).numpy())
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,  # no kernel
-                           "slice_scatter": 0, "window_gather": 0, "window_join": 0}  # on the CPU
+                           "slice_scatter": 0, "window_gather": 0, "window_join": 0,
+                           "sweep_pass": 0, "sweep_scatter": 0}  # on the CPU
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():
@@ -615,7 +616,8 @@ def test_chip_pass_q_empty_fleet_launches_nothing():
     out = tp.chip_pass_q(empty, empty, torch.empty(0), torch.tensor([2100.0, 1.0]))
     assert out.shape == (0,) and out.dtype == torch.bool
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
-                           "slice_scatter": 0, "window_gather": 0, "window_join": 0}
+                           "slice_scatter": 0, "window_gather": 0, "window_join": 0,
+                           "sweep_pass": 0, "sweep_scatter": 0}
     assert kernels.DESIGN_LAUNCHES == {"rows": 0, "tiles": 0}
 
 
@@ -901,7 +903,8 @@ def test_chip_pass_empty_fleet_launches_nothing():
     out = tp.chip_pass(empty, empty, empty.bool(), torch.empty(0), torch.tensor([2100.0, 1.0]))
     assert out.shape == (0,) and out.dtype == torch.bool
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
-                           "slice_scatter": 0, "window_gather": 0, "window_join": 0}
+                           "slice_scatter": 0, "window_gather": 0, "window_join": 0,
+                           "sweep_pass": 0, "sweep_scatter": 0}
     assert kernels.F32_DESIGN_LAUNCHES == {"groups": 0, "long": 0}
     long_empty = torch.empty((0, 360))
     out = tp.chip_pass(long_empty, long_empty, long_empty.bool(), torch.empty(0),
@@ -1213,7 +1216,8 @@ def test_slice_gate_wrapper_validates_inputs():
         assert got.tolist() == [True, False, True]
     assert kernels.slice_gate(cand, bounds[:1]).shape == (0,)  # S = 0
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
-                           "slice_scatter": 0, "window_gather": 0, "window_join": 0}
+                           "slice_scatter": 0, "window_gather": 0, "window_join": 0,
+                           "sweep_pass": 0, "sweep_scatter": 0}
 
 
 # --- the scatter slice reduction (tp_slice_scatter) ---------------------------
@@ -1306,7 +1310,8 @@ def test_slice_scatter_wrapper_validates_inputs():
     assert kernels.slice_scatter(cand, ids, 0).shape == (0,)  # S = 0
     assert kernels.slice_scatter(cand[:0], ids[:0], 2).tolist() == [False, False]  # C = 0
     assert tp.LAUNCHES == {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0,
-                           "slice_scatter": 0, "window_gather": 0, "window_join": 0}
+                           "slice_scatter": 0, "window_gather": 0, "window_join": 0,
+                           "sweep_pass": 0, "sweep_scatter": 0}
 
 
 def test_slice_verdicts_go_through_the_scatter_wrapper():

@@ -6,7 +6,8 @@ written by the test or served from a local HTTP server. Their exit codes
 must be equal, their stdout byte-equal, and their stderr equal once the
 port's module name is read as the reference's. An argparse error also
 prints the usage block, which lists every option: there the port's own
-``--device`` and ``--profile`` options are taken out and whitespace (line
+``--device``, ``--profile``, ``--follow-fleet``, ``--sweep`` and ``--step-s``
+options are taken out and whitespace (line
 wrapping, which depends on the length of the program name) collapsed
 before comparing; the error line itself is compared byte for byte.
 """
@@ -48,8 +49,10 @@ def normalize_stderr(err, module="analyze"):
         return err
     marker = f"\npython -m tpu_pruner.{module}: error: "
     usage, sep, message = err.partition(marker)
-    usage = " ".join(usage.replace("[--device {cuda,cpu}]", "")
-                     .replace("[--profile PATH]", "").replace("[--follow-fleet]", "").split())
+    for own in ("[--device {cuda,cpu}]", "[--profile PATH]", "[--follow-fleet]",
+                "[--sweep KEY=VALUE [KEY=VALUE ...]]", "[--step-s STEP_S]"):
+        usage = usage.replace(own, "")
+    usage = " ".join(usage.split())
     return usage + sep + message
 
 

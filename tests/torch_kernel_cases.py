@@ -819,3 +819,66 @@ def launch_counts(name: str, fn) -> dict | None:
           f"{sum(ms.values()):.5f} ms traced in all", flush=True)
     return {"total": sum(ops.values()), "by_name": ops, "ms_by_name": ms,
             "traced_ms": sum(ms.values())}
+
+
+# --- the policy sweep --------------------------------------------------------
+
+def sweep_grid_cases(T: int) -> dict:
+    """name -> (samples [D], lookbacks [D], cutoffs [H]) of grids over rows of
+    T samples: one policy on the whole row; 16 and 64 policies whose windows
+    end on every kind of place in the kernel's walk (a step of 32 samples and
+    a chunk of 32 x 12: at an edge, one inside, one outside, one sample, the
+    whole row, twice the same window); cutoffs of the fleet's special values
+    (0.05 and 1.0 exactly), a subnormal one, 0.5 and +inf (disabled); age
+    gates at the fleet's special ages and around 2,000 s."""
+    inf = np.float32(np.inf)
+    ends = sorted({1, T} | {n for n in (2, 31, 32, 33, 63, 64, 65, 383, 384, 385, 767, 1000)
+                            if n < T})
+    pick = [ends[round(i * (len(ends) - 1) / 7)] for i in range(8)]
+    look8 = np.array([0, 1e-40, 1999, 2000, 2001, 3000, 3999.5, 4000], np.float32)
+    cut8 = np.array([0.05, 1.0, 1e-40, 0.5, inf, 0.2, 0.01, 0.05], np.float32)
+    return {
+        "P=1": (np.array([T], np.int32), np.array([2000.0], np.float32), np.array([inf])),
+        "P=16": (np.array([T, pick[3], pick[1], pick[3]], np.int32), look8[[2, 3, 4, 0]],
+                 cut8[[0, 4, 3, 1]]),
+        "P=64": (np.array(pick[::-1], np.int32), look8, cut8),
+    }
+
+
+def sweep_pass_cases(seed: int) -> dict:
+    """name -> (tc, hbm, valid, age, samples, lookbacks, cutoffs) as numpy:
+    adversarial_fleet's rows (NaN, infinities, signed zeros, subnormals, the
+    smallest normal, exact cutoffs, absent series), with a quarter of the
+    rows quiet but for their oldest samples, so that short windows find idle
+    chips, under each grid of sweep_grid_cases, at row lengths around the
+    kernel's steps and chunks and at the cell's 1,440."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for T in (1, 31, 32, 33, 385, 1440):
+        tc, hbm, valid, age = adversarial_fleet(rng, 523, T)
+        quiet = rng.uniform(size=523) < 0.25
+        recent = np.arange(T)[None, :] >= rng.integers(0, T, 523)[:, None]
+        tc[quiet[:, None] & recent] = 0.0
+        hbm[quiet[:, None] & recent] = 0.0
+        age[rng.uniform(size=523) < 0.1] = 2000.0
+        for name, grid in sweep_grid_cases(T).items():
+            cases[f"T={T}, {name}"] = (tc, hbm, valid, age, *grid)
+    return cases
+
+
+def sweep_scatter_cases(seed: int) -> dict:
+    """name -> (masks int64 [C], ids [C], S, P) as numpy: scatter_cases'
+    ids, each chip's mask its slice's random 64-bit word (bit 63 in half of
+    them) with a few chips lacking a bit or two, under P = 1, 16 and 64."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for name, (cand, ids, S) in scatter_cases(seed).items():
+        base = rng.integers(-2**63, 2**63 - 1, size=max(S, 1), dtype=np.int64, endpoint=True)
+        inside = (ids >= 0) & (ids < S)
+        masks = np.where(inside, base[np.where(inside, ids, 0)], rng.integers(
+            -2**63, 2**63 - 1, size=ids.size, dtype=np.int64, endpoint=True))
+        lack = np.left_shift(np.int64(1), rng.integers(0, 64, ids.size).astype(np.int64))
+        masks = np.where(cand, masks, masks & ~lack)
+        for P in (1, 16, 64):
+            cases[f"{name}, P={P}"] = (masks, ids, S, P)
+    return cases

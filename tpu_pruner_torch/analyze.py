@@ -23,8 +23,11 @@ Input format (JSON):
     }
 
 Chips may have different sample counts; series are right-aligned and
-padded with invalid samples. Output: one human table on stderr and one
-machine-readable JSON line on stdout, the same as tpu_pruner.analyze's.
+padded with invalid samples. A sample may be null: a step with no sample
+(``tpu_pruner_torch.dump`` writes one wherever Prometheus returned none, so
+that every series spans the window), invalid in tc and 0 in hbm. Output:
+one human table on stderr and one machine-readable JSON line on stdout,
+the same as tpu_pruner.analyze's.
 The default evaluates f32 samples with the contiguous cumsum reduction
 (evaluate_fleet_c); ``--quantize`` evaluates int8 samples
 (evaluate_fleet_qc).
@@ -67,6 +70,24 @@ the window, so a chip back after a missed scrape is judged on its whole
 history; verdicts cover the chips of this dump alone, and deltas go by
 slice name. STATE then also holds the rows' ids, the cycle each was last
 present in and the cycle's number (``row_ids``, ``row_seen``, ``cycle``).
+
+Policy-sweep mode (``--sweep duration=15m,30m,... hbm_threshold=0,0.05,...
+[grace=300]``): judge the dump under every (duration, threshold) pair at
+once, at most 64, with the what-if keys' names and units (a plain duration
+is minutes, the daemon's -t; a plain grace is seconds, its -g). Each policy
+takes the newest duration / step_s samples of every chip and the age gate
+duration + grace; the dump must carry ``step_s`` (``tpu_pruner_torch.dump``
+stamps it), or ``--step-s`` gives it, and every series must be placed in
+time, the window's length with null where there is no sample, as the
+port's dump writes them: a dump with a shorter series is refused, since
+right-aligning it would judge older samples as the newest. A policy whose
+duration + grace no pod's age reaches gets a warning (the dump stamps one
+``--pod-age-s`` on every chip). One evaluate_fleet_sweep call judges
+every policy in one pass of the samples; stderr gets a table row a policy
+(duration, grace, threshold, reclaimable slices and their chips), stdout
+one JSON line. The replay's ``--what-if duration=`` and ``hbm_threshold=``
+re-render the daemon's query but judge the recorded answer to the old one;
+raw samples are what a new window or cutoff needs.
 
 Decision-audit mode (``--explain <ns>/<pod>``): read the daemon's
 DecisionRecord trail, from the ``--audit-log`` JSONL file or the live
@@ -124,7 +145,8 @@ time by innermost span. Stdout is as without the flag. The spans are
 ``tpu_pruner_torch.obs``'s: ``analyze.main``, ``.parse`` (the dump read),
 ``.load_fleet``, ``.release`` (the parsed dump freed), ``.evaluate``,
 ``.report`` and, with ``--stream``, ``.state_load``, ``.readback`` and
-``.state_save``, around the engine's own.
+``.state_save``, around the engine's own (``engine.sweep`` and the
+``sweep_*`` counters with ``--sweep``).
 """
 
 from __future__ import annotations
@@ -176,15 +198,15 @@ def load_fleet(doc):
     for i, c in enumerate(chips):
         if "id" not in c:
             default_ids += 1
-        samples = np.asarray(c["tc"], dtype=np.float32)
+        samples, given = _samples(c["tc"])
         n = len(samples)
         if n:
             tc[i, T - n:] = samples
-            valid[i, T - n:] = True
+            valid[i, T - n:] = given
         hbm_samples = c.get("hbm")
         if hbm_samples:
             # HBM validity is the tensorcore series' validity
-            h = np.asarray(hbm_samples, dtype=np.float32)
+            h, _ = _samples(hbm_samples)
             hbm[i, T - len(h):] = h
         age[i] = float(c.get("pod_age_s", 0))
         slice_id[i] = slice_index[c["slice"]]
@@ -196,6 +218,25 @@ def load_fleet(doc):
     order = np.lexsort((ids, slice_id))
     return ((tc[order], hbm[order], valid[order], age[order],
              slice_id[order]), slice_names, ids[order], default_ids)
+
+
+def _samples(series):
+    """A series as (f32 samples, bool given): a null sample reads 0, not given."""
+    if None not in series:
+        return np.asarray(series, dtype=np.float32), True
+    given = np.array([v is not None for v in series])
+    return np.asarray([0.0 if v is None else v for v in series], dtype=np.float32), given
+
+
+def ragged_chips(doc) -> int:
+    """The chips of a dump whose tc series, or hbm series where given, is
+    shorter than the longest series: those that ``load_fleet`` right-aligns,
+    which places a series in time only where it ends at the newest step."""
+    if isinstance(doc, dump_reader.Scan):
+        return doc.ragged
+    lengths = [(len(c["tc"]), len(c.get("hbm") or [])) for c in doc["chips"]]
+    T = max(1, max(max(n) for n in lengths))
+    return sum(tc != T or hbm not in (0, T) for tc, hbm in lengths)
 
 
 @obs.spanned("analyze.evaluate")
@@ -409,6 +450,96 @@ def _run_stream(args, doc, fleet, slice_names, chip_ids, params) -> int:
             "hbm_threshold": params.hbm_threshold,
         }))
         return 0
+
+
+_SWEEP_UNITS = {"s": 1, "m": 60, "h": 3600}
+
+
+def _seconds(text: str, plain: float) -> float:
+    """A what-if duration in seconds: ``45m``, ``3600s``, ``2h``, or a plain
+    number in units of ``plain`` seconds."""
+    if text and text[-1] in _SWEEP_UNITS:
+        return float(text[:-1]) * _SWEEP_UNITS[text[-1]]
+    return float(text) * plain
+
+
+def _sweep_keys(parser, pairs) -> dict:
+    """--sweep's keys: {"duration": [s, ...], "hbm_threshold": [...],
+    "grace": s}, the grid their product."""
+    keys = {}
+    for pair in pairs:
+        key, sep, value = pair.partition("=")
+        if not sep or key not in ("duration", "hbm_threshold", "grace") or key in keys:
+            parser.error(f"--sweep takes duration=..., hbm_threshold=... and grace=..., "
+                         f"each once; got {pair!r}")
+        keys[key] = value.split(",")
+    if "duration" not in keys:
+        parser.error("--sweep needs duration=<d1>,<d2>,... (minutes, or with s, m or h)")
+    try:
+        sweep = {"duration": [_seconds(v, 60) for v in keys["duration"]],
+                 "hbm_threshold": [float(v) for v in keys.get("hbm_threshold", ["0"])],
+                 "grace": [_seconds(v, 1) for v in keys.get("grace", ["300"])]}
+    except ValueError as e:
+        parser.error(f"--sweep: {e}")
+    if len(sweep["grace"]) != 1:
+        parser.error("--sweep takes one grace; run it again for another")
+    points = len(sweep["duration"]) * len(sweep["hbm_threshold"])
+    if points > 64:
+        parser.error(f"--sweep takes at most 64 policies; {len(sweep['duration'])} durations "
+                     f"x {len(sweep['hbm_threshold'])} thresholds are {points}")
+    return {**sweep, "grace": sweep["grace"][0]}
+
+
+def _run_sweep(args, fleet, num_slices: int, sweep: dict, step_s, ragged: int) -> int:
+    """--sweep: every policy of the grid in one evaluate_fleet_sweep call."""
+    import torch
+
+    from tpu_pruner_torch.policy import evaluate_fleet_sweep, fleet_from_numpy, sweep_grid
+
+    if step_s is None:
+        raise SystemExit("--sweep needs the samples' spacing: this dump carries no step_s "
+                         "(tpu_pruner_torch.dump stamps it); pass --step-s")
+    tc, hbm, valid, age, slice_id = fleet
+    if ragged:
+        raise SystemExit(f"--sweep needs every series placed in time, {tc.shape[1]} samples "
+                         f"each, the last the newest; {ragged} of {len(slice_id)} chips have a "
+                         "shorter tc or hbm series (tpu_pruner_torch.dump writes a step with "
+                         "no sample as null)")
+    try:
+        grid = sweep_grid(sweep["duration"], sweep["hbm_threshold"], sweep["grace"],
+                          float(step_s), tc.shape[1])
+    except ValueError as e:
+        raise SystemExit(f"--sweep: {e} (the dump holds {tc.shape[1]} samples "
+                         f"{float(step_s):g} s apart)") from None
+    oldest = float(age.max())
+    gated = [d for d in grid.durations_s if not oldest >= np.float32(d + grid.grace_s)]
+    if gated:
+        print(f"WARNING: no pod is old enough for duration {', '.join(f'{d:g}' for d in gated)} "
+              f"s + grace {grid.grace_s:g} s (the oldest is {oldest:g} s; dump.py stamps "
+              "--pod-age-s on every chip): those policies pause nothing", file=sys.stderr)
+    with obs.span("analyze.evaluate"):
+        _, chips, counts = evaluate_fleet_sweep(*fleet_from_numpy(fleet, args.device), grid,
+                                                num_slices)
+        chips, counts = obs.to_host(chips), obs.to_host(counts).numpy()
+        idle = ((chips[:, None] >> torch.arange(grid.num_policies)) & 1).sum(dim=0).numpy()
+    with obs.span("analyze.report"):
+        print(f"{'duration':>10s} {'grace':>7s} {'hbm_threshold':>13s} {'slices':>8s} "
+              f"{'chips':>8s} {'idle chips':>10s}", file=sys.stderr)
+        policies = []
+        for p in range(grid.num_policies):
+            duration, threshold = grid.policy(p)
+            print(f"{duration / 60:9g}m {grid.grace_s:6g}s {threshold:13g} "
+                  f"{int(counts[p, 0]):8d} {int(counts[p, 1]):8d} {int(idle[p]):10d}",
+                  file=sys.stderr)
+            policies.append({"duration_s": duration, "hbm_threshold": threshold,
+                             "lookback_s": duration + grid.grace_s,
+                             "reclaimable_slices": int(counts[p, 0]),
+                             "reclaimable_chips": int(counts[p, 1]),
+                             "idle_chips": int(idle[p])})
+        print(json.dumps({"num_chips": int(len(slice_id)), "num_slices": num_slices,
+                          "window_samples": int(tc.shape[1]), "step_s": float(step_s),
+                          "grace_s": grid.grace_s, "policies": policies}))
+    return 0
 
 
 def _load_decision_records(args) -> list[dict]:
@@ -1247,6 +1378,16 @@ def main(argv=None) -> int:
                              "traces and SLO budget burn from a daemon's "
                              "/debug/traces index (a bare http://host:port "
                              "is expanded)")
+    parser.add_argument("--sweep", nargs="+", metavar="KEY=VALUE",
+                        help="policy-sweep mode: judge the dump under every "
+                             "(duration, hbm_threshold) pair at once, at most 64: "
+                             "duration=15m,30m,... (a plain number is minutes, "
+                             "as -t), hbm_threshold=0,0.05,... and grace=300 "
+                             "(seconds, as -g; the default); one table row and "
+                             "one JSON entry a policy")
+    parser.add_argument("--step-s", type=float, default=None,
+                        help="with --sweep: the samples' spacing in seconds, for "
+                             "a dump that does not carry step_s")
     parser.add_argument("--lookback-s", type=float, default=None,
                         help="override lookback seconds (default: dump value or 2100)")
     parser.add_argument("--hbm-threshold", type=float, default=None,
@@ -1359,6 +1500,14 @@ def _main(parser, args) -> int:
         parser.error("--window-chunks must be >= 1")
     if args.follow_fleet and not args.stream:
         parser.error("--follow-fleet only applies with --stream")
+    if args.step_s is not None and not args.sweep:
+        parser.error("--step-s only applies with --sweep")
+    if args.sweep and (args.stream or args.shard or args.quantize
+                       or args.lookback_s is not None or args.hbm_threshold is not None):
+        parser.error("--sweep takes its windows and thresholds from its own keys; it "
+                     "does not apply with --stream, --shard, --quantize, --lookback-s "
+                     "or --hbm-threshold")
+    sweep = _sweep_keys(parser, args.sweep) if args.sweep else None
     if args.stream and args.shard:
         # the window pass reads [C, K] chunk maxima, which is tiny, so
         # sharding it buys nothing; make_sharded_stream_step is the API for
@@ -1395,6 +1544,12 @@ def _main(parser, args) -> int:
                        else float(doc.get("hbm_threshold", 0.0))),
     )
     num_slices = len(slice_names)
+    if sweep:
+        step_s = args.step_s if args.step_s is not None else doc.get("step_s", None)
+        ragged = ragged_chips(doc)
+        with obs.span("analyze.release"):
+            del doc, chip_ids
+        return _run_sweep(args, fleet, num_slices, sweep, step_s, ragged)
     if args.stream:
         return _run_stream(args, doc, fleet, slice_names, chip_ids, params)
     with obs.span("analyze.release"):  # freeing a large dump's objects takes a while

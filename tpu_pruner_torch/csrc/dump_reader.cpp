@@ -7,11 +7,12 @@
 // gives; on anything else it returns null and the caller runs json.load and
 // load_fleet instead. It takes JSON's grammar (whitespace, any key order,
 // unknown keys and nested unknown values), numbers with Python's NaN,
-// Infinity and -Infinity, string ids or a missing id, a missing pod_age_s, a
-// missing, null or empty hbm, and ragged series. It does not take: a
-// backslash, a control byte or a byte of 0x80 or above inside any string; a
-// repeated key that the program reads; true, false, null or a string in a
-// series; a non-string slice or id; a non-number pod_age_s or top-level
+// Infinity and -Infinity, null samples (a step with no sample: invalid in
+// tc, 0 in hbm), string ids or a missing id, a missing pod_age_s, a missing,
+// null or empty hbm, and ragged series. It does not take: a backslash, a
+// control byte or a byte of 0x80 or above inside any string; a repeated key
+// that the program reads; true, false or a string in a series; a non-string
+// slice or id; a non-number pod_age_s or top-level
 // scalar; an integer literal of more than 15 digits; a number that
 // from_chars does not convert exactly (out of range, underflow to zero); an
 // empty chips list; nesting deeper than kMaxDepth; anything json.load
@@ -54,11 +55,20 @@ constexpr unsigned kMaxThreads = 8;
 constexpr double kPow10[] = {1e0,  1e1,  1e2,  1e3,  1e4,  1e5,  1e6,  1e7,
                              1e8,  1e9,  1e10, 1e11, 1e12, 1e13, 1e14, 1e15,
                              1e16, 1e17, 1e18, 1e19, 1e20, 1e21, 1e22};  // exact
-enum Scalar { kTimestamp, kLookback, kHbmThreshold, kScalars };
+enum Scalar { kTimestamp, kLookback, kHbmThreshold, kStepS, kScalars };
 enum Overflow { kTcOverflow = 1, kHbmOverflow = 2, kAgeOverflow = 4 };
+// A null sample as the parts store it: a NaN whose payload no number parses to.
+constexpr uint32_t kNullBits = 0x7fc0deadu;
+
+bool is_null(float f) {
+  uint32_t bits;
+  std::memcpy(&bits, &f, sizeof bits);
+  return bits == kNullBits;
+}
 
 struct Series {
   int64_t off = 0, len = 0;  // into the samples of the chip's Part
+  bool nulls = false;        // some sample is null
 };
 
 struct Chip {
@@ -88,12 +98,13 @@ struct Part {
 struct Dump {
   Part all;                // every chip, in document order
   std::vector<std::string> positional;  // str(i) of the chips without an id
-  double scalars[kScalars] = {0, 0, 0};
+  double scalars[kScalars] = {0, 0, 0, 0};
   int present = 0;         // bit k: scalars[k] was given
   int64_t samples_max = 1; // T
   int64_t id_width = 1;    // numpy's <U width: the longest id, at least 1
   int64_t names_bytes = 0; // the sorted names joined by '\n'
   int64_t default_ids = 0;
+  int64_t ragged = 0;      // chips whose tc, or given hbm, is not T samples long
   size_t threads = 1;      // the parts the scan used; the fill uses as many
 };
 
@@ -321,16 +332,23 @@ class ChipReader : public Cursor {
  private:
   Part& part_;
 
-  // An array of numbers, each stored as float; ``flag`` marks an overflow.
+  // An array of numbers and nulls, each stored as float, a null as
+  // kNullBits; ``flag`` marks an overflow.
   bool series(Series& s, int flag) {
     if (!open('[')) return false;
     s.off = static_cast<int64_t>(part_.samples.size());
     if (!peek(']')) {
       for (;;) {
         double v;
-        if (!number(v)) return false;
-        float f = static_cast<float>(v);
-        if (std::isinf(f) && std::isfinite(v)) part_.overflow |= flag;
+        float f;
+        if (word("null")) {
+          std::memcpy(&f, &kNullBits, sizeof f);
+          s.nulls = true;
+        } else {
+          if (!number(v)) return false;
+          f = static_cast<float>(v);
+          if (std::isinf(f) && std::isfinite(v)) part_.overflow |= flag;
+        }
         part_.samples.push_back(f);
         if (!next_or_close(']')) return false;
         if (peek(']')) break;
@@ -489,7 +507,8 @@ bool read_document(const char* data, int64_t size, Dump& d, int64_t part_bytes) 
       if (!top.key_colon(key)) return false;
       int k = key == "timestamp" ? kTimestamp
               : key == "lookback_s" ? kLookback
-              : key == "hbm_threshold" ? kHbmThreshold : -1;
+              : key == "hbm_threshold" ? kHbmThreshold
+              : key == "step_s" ? kStepS : -1;
       if (key == "chips") {
         if (seen_chips || !read_chips(top, d, part_bytes)) return false;
         seen_chips = true;
@@ -519,6 +538,8 @@ void finish(Dump& d) {
     if (!c.has_id) c.id = d.positional.emplace_back(std::to_string(i));
     d.id_width = std::max<int64_t>(d.id_width, static_cast<int64_t>(c.id.size()));
   }
+  for (const Chip& c : chips)
+    d.ragged += c.tc.len != d.samples_max || (c.hbm.len && c.hbm.len != d.samples_max);
   for (std::string_view s : d.all.slices) d.names_bytes += static_cast<int64_t>(s.size()) + 1;
   d.names_bytes -= 1;
 }
@@ -536,9 +557,10 @@ extern "C" {
 // Parses ``size`` bytes at ``data``, the chips list in parts of about
 // ``part_bytes``. Returns a handle, or null when the reader does not take
 // the document. ``sizes``: chips, T, slices, the names' bytes, the ids'
-// width, default ids, the Overflow bits. ``scalars``: timestamp, lookback_s,
-// hbm_threshold; ``present`` has bit k set where the k-th was given. The
-// handle points into ``data``, which must outlive it.
+// width, default ids, the Overflow bits, the ragged chips. ``scalars``:
+// timestamp, lookback_s, hbm_threshold, step_s; ``present`` has bit k set
+// where the k-th was given. The handle points into ``data``, which must
+// outlive it.
 void* tp_dump_scan(const char* data, int64_t size, int64_t part_bytes, int64_t* sizes,
                    double* scalars, int32_t* present) {
   Dump* d = nullptr;
@@ -555,7 +577,7 @@ void* tp_dump_scan(const char* data, int64_t size, int64_t part_bytes, int64_t* 
   }
   const int64_t out[] = {static_cast<int64_t>(d->all.chips.size()), d->samples_max,
                          static_cast<int64_t>(d->all.slices.size()), d->names_bytes,
-                         d->id_width, d->default_ids, d->all.overflow};
+                         d->id_width, d->default_ids, d->all.overflow, d->ragged};
   std::memcpy(sizes, out, sizeof(out));
   std::memcpy(scalars, d->scalars, sizeof(d->scalars));
   *present = d->present;
@@ -624,8 +646,21 @@ int tp_dump_fill(void* handle, float* tc, float* hbm, uint8_t* valid, float* age
         std::copy_n(samples + c.tc.off, n, tc_row + (T - n));
         std::fill(valid_row, valid_row + (T - n), uint8_t{0});
         std::fill(valid_row + (T - n), valid_row + T, uint8_t{1});
+        if (c.tc.nulls) {
+          for (int64_t t = T - n; t < T; ++t) {
+            if (is_null(tc_row[t])) {
+              tc_row[t] = 0.0f;
+              valid_row[t] = 0;
+            }
+          }
+        }
         std::fill(hbm_row, hbm_row + (T - m), 0.0f);
         std::copy_n(samples + c.hbm.off, m, hbm_row + (T - m));
+        if (c.hbm.nulls) {
+          for (int64_t t = T - m; t < T; ++t) {
+            if (is_null(hbm_row[t])) hbm_row[t] = 0.0f;
+          }
+        }
         age[r] = c.age;
         slice_id[r] = rank[c.slice];
         uint32_t* id_row = ids + r * W;

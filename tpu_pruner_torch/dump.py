@@ -3,7 +3,14 @@
     python -m tpu_pruner_torch.dump --prometheus-url URL > dump.json
     python -m tpu_pruner_torch.analyze dump.json
 
-The port of tpu_pruner/dump.py, with the same options and output. Queries
+The port of tpu_pruner/dump.py, with the same options, and two changes to
+its output: the samples' spacing, ``step_s`` (``--step-s``), is stamped on
+the document, and every series is placed in time: it spans the window, one
+sample a step from the oldest to the newest, with ``null`` at each step
+for which Prometheus returned no sample (a missed scrape, a pod not yet
+running or gone), in tc and hbm alike. ``analyze`` reads a null sample as
+invalid, so a window of the newest samples (``analyze --sweep``) holds
+what the chip reported in that time and nothing older. Queries
 `/api/v1/query_range` over the lookback window and emits the analyze input
 format: one chip per returned series, grouped into slices by
 `--slice-label` (JobSet membership when the label exists, falling back to
@@ -55,13 +62,38 @@ def fetch_range(base_url: str, query: str, start: float, end: float,
     return data.get("result", [])
 
 
+def place(values, start: float, step_s: float, steps: int) -> list:
+    """A query_range series' ``[timestamp, value]`` pairs as ``steps``
+    samples, the k-th that of ``start + k * step_s``, None where the series
+    has none (pairs off the grid of steps are dropped)."""
+    samples = [None] * steps
+    for ts, v in values:
+        k = round((float(ts) - start) / step_s)
+        if 0 <= k < steps:
+            samples[k] = float(v)
+    return samples
+
+
 def build_dump(tc_result, hbm_result, slice_label: str, pod_age_s: float,
-               lookback_s: float):
+               lookback_s: float, step_s: float | None = None, start: float | None = None,
+               steps: int | None = None):
     """Join tc/hbm range series into the analyze chip list.
 
     Chip identity = (namespace, pod, accelerator_id) — stable across
     exports, so successive dumps feed `analyze --stream` directly.
+    ``step_s``, where given, is stamped on the document after
+    ``lookback_s``: the samples' spacing, which ``analyze --sweep`` needs to
+    cut a window of a given duration from the newest samples. With
+    ``start`` and ``steps`` too, each series is placed in time (``place``):
+    ``steps`` samples from ``start``, null where it has none; without them
+    the values are listed as they come, as tpu_pruner/dump.py lists them.
     """
+    def samples(series):
+        values = series.get("values", [])
+        if start is None or steps is None or step_s is None:
+            return [float(v) for _, v in values]
+        return place(values, start, step_s, steps)
+
     def key(metric):
         # accelerator_id needs the same exported_ tolerance as the identity
         # labels: under an honor_labels scrape it arrives as
@@ -73,8 +105,7 @@ def build_dump(tc_result, hbm_result, slice_label: str, pod_age_s: float,
 
     hbm_by_key = {}
     for series in hbm_result or []:
-        hbm_by_key[key(series["metric"])] = [
-            float(v) for _, v in series.get("values", [])]
+        hbm_by_key[key(series["metric"])] = samples(series)
 
     chips = []
     for series in tc_result:
@@ -88,13 +119,16 @@ def build_dump(tc_result, hbm_result, slice_label: str, pod_age_s: float,
             "slice": slice_name,
             "id": f"{ns}/{pod}/{accel}",
             "pod_age_s": pod_age_s,
-            "tc": [float(v) for _, v in series.get("values", [])],
+            "tc": samples(series),
         }
         hbm = hbm_by_key.get((ns, pod, accel))
         if hbm is not None:
             chip["hbm"] = hbm
         chips.append(chip)
-    return {"lookback_s": lookback_s, "timestamp": time.time(), "chips": chips}
+    doc = {"lookback_s": lookback_s}
+    if step_s is not None:
+        doc["step_s"] = step_s
+    return {**doc, "timestamp": time.time(), "chips": chips}
 
 
 def main(argv=None) -> int:
@@ -145,21 +179,25 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     token = os.environ.get("PROMETHEUS_TOKEN")
-    end = time.time()
-    start = end - args.window_s
+    end = round(time.time(), 3)  # as fetch_range sends it
+    start = round(end - args.window_s, 3)
     tc = fetch_range(args.prometheus_url, args.tc_metric, start, end,
                      args.step_s, token)
     hbm = (fetch_range(args.prometheus_url, args.hbm_metric, start, end,
                        args.step_s, token)
            if args.hbm_metric else [])
+    # query_range evaluates at start, start + step, ... while <= end, in
+    # milliseconds, at the whole seconds of step that fetch_range sends
+    step = float(int(args.step_s))
+    steps = (round(end * 1000) - round(start * 1000)) // round(step * 1000) + 1
     doc = build_dump(tc, hbm, args.slice_label, args.pod_age_s,
                      args.lookback_s if args.lookback_s is not None
-                     else args.window_s)
+                     else args.window_s, step, start, steps)
     if args.percent:
         for chip in doc["chips"]:
-            chip["tc"] = [v / 100.0 for v in chip["tc"]]
+            chip["tc"] = [None if v is None else v / 100.0 for v in chip["tc"]]
             if "hbm" in chip:
-                chip["hbm"] = [v / 100.0 for v in chip["hbm"]]
+                chip["hbm"] = [None if v is None else v / 100.0 for v in chip["hbm"]]
     if not doc["chips"]:
         print(f"WARNING: query '{args.tc_metric}' returned no pod-keyed "
               "series over the window", file=sys.stderr)

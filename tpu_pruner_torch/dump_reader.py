@@ -29,18 +29,20 @@ import numpy as np
 from tpu_pruner_torch import hostlib, obs
 
 PART_BYTES = 4 << 20  # the chips list is read on a thread for each part of this size, up to 8
-SCALARS = ("timestamp", "lookback_s", "hbm_threshold")  # the scan's order
-_SIZES = 7  # chips, T, slices, names' bytes, ids' width, default ids, overflow bits
+SCALARS = ("timestamp", "lookback_s", "hbm_threshold", "step_s")  # the scan's order
+_SIZES = 8  # chips, T, slices, names' bytes, ids' width, default ids, overflow bits, ragged
 
 
 class Scan:
     """A dump the reader took: ``get`` reads its top-level numbers, and
-    ``fleet()``, called once, gives ``load_fleet``'s result."""
+    ``fleet()``, called once, gives ``load_fleet``'s result. ``ragged``:
+    the chips whose tc series, or hbm series where given, is shorter than
+    the longest series."""
 
     def __init__(self, lib, handle: int, data: bytes, sizes, scalars, present: int):
         self._lib, self._handle, self._data = lib, handle, data  # the handle points into data
         (self._chips, self._samples, _, self._names_bytes, self._id_width, self._default_ids,
-         self._overflow) = (int(x) for x in sizes)
+         self._overflow, self.ragged) = (int(x) for x in sizes)
         self._scalars = {k: float(scalars[i]) for i, k in enumerate(SCALARS)
                          if present >> i & 1}
         self._free = weakref.finalize(self, lib.tp_dump_free, handle)

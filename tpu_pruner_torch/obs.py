@@ -33,7 +33,10 @@ answered; ``window_rows_new``, ``_retained``, ``_dropped`` and ``_moved``
 the streaming window's rows that ``engine.rekey_window`` added for new
 chips, kept for absent ones, dropped, and carried to another place;
 ``rekey_card``, ``rekey_native`` and ``rekey_plain`` its calls that the
-join on the card, the native host join and the plain version answered. The
+join on the card, the native host join and the plain version answered;
+``sweep_policies`` and ``sweep_window_passes`` the policies that
+``engine.evaluate_fleet_sweep`` judged and its passes over the samples (one
+a call, whatever the policies). The
 card's join copies the chips' keys up from pinned memory in its own call,
 and writes its counts and kept rows into pinned host memory, for which the
 host waits once: those bytes count in ``h2d_bytes`` and ``d2h_bytes``, and
@@ -63,7 +66,8 @@ SPIN_NAMES = ("spin_kernel", "sleep")  # the kernel that opens a traced window
 counts = {"h2d_bytes": 0, "d2h_bytes": 0, "host_syncs": 0, "ingest_native": 0,
           "ingest_fallback": 0, "bounds_native": 0, "bounds_fallback": 0,
           "window_rows_new": 0, "window_rows_retained": 0, "window_rows_dropped": 0,
-          "window_rows_moved": 0, "rekey_card": 0, "rekey_native": 0, "rekey_plain": 0}
+          "window_rows_moved": 0, "rekey_card": 0, "rekey_native": 0, "rekey_plain": 0,
+          "sweep_policies": 0, "sweep_window_passes": 0}
 # kernels.py's launch counters, reported by summary() under these prefixes
 _KERNEL_COUNTERS = (("launches", "LAUNCHES"), ("design_launches", "DESIGN_LAUNCHES"),
                     ("f32_design_launches", "F32_DESIGN_LAUNCHES"))

@@ -28,6 +28,8 @@ streaming (daemon loop)     ``update_window(_)`` +     ``make_sharded_stream_ste
                                                        rank, no collective)
 streaming, fleet changing   ``rekey_window``, then     none
 between cycles              the row above
+a grid of up to 64          ``evaluate_fleet_sweep``   none
+policies, any order         (one pass, 64-bit masks)
 ==========================  =========================  ===========================
 
 int8 quantized storage (``quantize_fleet_inputs``) is the recommended form:
@@ -47,6 +49,7 @@ from tpu_pruner_torch.policy.engine import (
     UTIL_SCALE,
     PolicyParams,
     Rekeyed,
+    SweepGrid,
     WindowRows,
     assert_uniform_slices,
     evaluate_chips,
@@ -56,6 +59,7 @@ from tpu_pruner_torch.policy.engine import (
     evaluate_fleet_q,
     evaluate_fleet_qc,
     evaluate_fleet_qu,
+    evaluate_fleet_sweep,
     evaluate_window_qc,
     evaluate_window_qu,
     fleet_from_numpy,
@@ -70,6 +74,7 @@ from tpu_pruner_torch.policy.engine import (
     slice_bounds,
     slice_verdicts,
     slice_verdicts_contiguous,
+    sweep_grid,
     update_window,
     update_window_,
     window_from_numpy,
@@ -101,6 +106,7 @@ __all__ = [
     "UTIL_SCALE",
     "PolicyParams",
     "Rekeyed",
+    "SweepGrid",
     "WindowRows",
     "assert_uniform_slices",
     "chip_pass",
@@ -117,6 +123,7 @@ __all__ = [
     "evaluate_fleet_q",
     "evaluate_fleet_qc",
     "evaluate_fleet_qu",
+    "evaluate_fleet_sweep",
     "evaluate_fleet_sharded",
     "evaluate_fleet_sharded_q",
     "evaluate_fleet_sharded_qc",
@@ -142,6 +149,7 @@ __all__ = [
     "slice_bounds",
     "slice_verdicts",
     "slice_verdicts_contiguous",
+    "sweep_grid",
     "update_window",
     "update_window_",
     "window_from_numpy",

@@ -1,7 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``policy/csrc/chip_pass.cu`` (both chip passes, both slice reductions, and the
-window's key join and row gather)
+``policy/csrc/chip_pass.cu`` (both chip passes, both slice reductions, the
+window's key join and row gather, and the policy sweep's pass and reduction)
 becomes ``build/torch_kernels/libchip_pass.so`` at the repository root,
 compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain C interface. That
 builds in seconds, where an extension that includes PyTorch's headers takes
@@ -56,6 +56,13 @@ SIGNATURES = {
     # tc_in, hbm_in, index ([rows] int32), tc_out, hbm_out, rows out, row bytes,
     # the stream
     "tp_window_gather": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    # tc, hbm, valid, age, out, num_chips, num_samples, samples ([D] int32 on
+    # the host), D, lookbacks ([D] f32), cutoffs ([H] f32), H, then
+    # kernels.PlanSweep in order, then the stream
+    "tp_sweep_pass": (_P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P, _P, _I64, _I64, _I64, _P),
+    # masks, ids, id_bytes, buf (slice masks, counts, scratch), num_chips,
+    # num_slices, policies, the stream
+    "tp_sweep_scatter": (_P, _P, _I, _P, _I64, _I64, _I64, _P),
 }
 RESTYPES = {"tp_window_join_scratch": ctypes.c_int64}  # the rest return an int
 SOURCE = CSRC / "chip_pass.cu"

@@ -13,7 +13,9 @@
 // contiguous slice gate, tp_slice_gate, for chips in slice order, and the
 // scatter reduction, tp_slice_scatter, for chips in any order. Last, the
 // streaming window's key join, tp_window_join, and its row gather,
-// tp_window_gather, which have none either.
+// tp_window_gather, which have none either; and the policy sweep,
+// tp_sweep_pass and tp_sweep_scatter (a grid of policies in one pass of the
+// window), which has none either.
 //
 // Both read every sample byte once and write one byte per chip: they are
 // bound by device-memory bandwidth and do no tensor-core work. At the fleet
@@ -1435,6 +1437,251 @@ void launch_window_gather(const void* tc_in, const void* hbm_in, const int32_t* 
         static_cast<W*>(tc_out), static_cast<W*>(hbm_out), words, row_words);
 }
 
+
+// ── the policy sweep: a grid of up to 64 policies in one pass ──────────────
+//
+// tp_sweep_pass and tp_sweep_scatter have no Pallas counterpart: the
+// reference judges one policy a call, so a grid of policies (an operator's
+// what-if over the daemon's -t window and --hbm-threshold) took a call a
+// policy, each a pass over a suffix of the window. A grid pairs D windows
+// (the newest n_d samples of a row; age gate lookback_d) with H HBM cutoffs;
+// policy p = d H + h is bit p of a 64-bit mask. engine.evaluate_fleet_sweep
+// calls both, kernels.sweep_pass_plain and sweep_scatter_plain are their
+// plain versions, with the f32 pass's numerics (verdict_f32's, per policy).
+//
+// The pass reads each sample of the longest window once and writes 8 bytes
+// a chip: at 260,000 chips x 1,440 samples, 3.37 GB, 1.0 ms at 3.35 TB/s.
+// It is the long-row design walked from the newest sample back: a warp a
+// row, lane l holding the samples at distances l, l + 32, ... from the
+// newest, K = kSweepK of them a chunk, every load of a chunk issued before
+// its fold. The lanes keep running peaks (RowPeaks), so at any step of the
+// walk the warp's peaks are those of a suffix. A window's end falls inside
+// one step of 32 samples (and a lane's chunk of K steps): when the walk
+// reaches that step, each lane takes its running peaks plus its sample of
+// the step if that lies inside the window, and the warp reduces them once
+// into the window's slot in shared memory. So D windows cost D reductions
+// a row, not D walks. Then each lane judges policies lane and lane + 32
+// from the slots, and two ballots give the row's mask.
+//
+// The grid travels by value in the kernel's parameters (__grid_constant__,
+// read where it lies): no copy to the card, and a call with another grid
+// needs neither a rebuild nor a wait. Each block copies the per-policy
+// tables it reads lane by lane into shared memory first.
+//
+// The slice reduction needs a bit a policy for each slice: AND over its
+// chips. tp_sweep_scatter is one memset and three kernels:
+//   - the marks: a thread a chip; lanes of one slice AND their masks along
+//     the warp (a host's chips are adjacent) and the first lane of each run
+//     stores "has a chip" and ORs the bits its run lacks into the slice's
+//     word, an atomic only where a bit is lacking; at the groups cell's
+//     layout that is one atomic a run of a host's chips, not a chip;
+//   - the slices: a thread a slice writes its mask (has a chip and lacks no
+//     bit) and counts the slices of each bit by ballots, in shared memory,
+//     then one global add a policy a block;
+//   - the chips: a thread a chip reads its slice's mask and counts the chips
+//     of each bit alike.
+// It moves about 8 C + 4 C (ids) + 33 S bytes: launches and round trips
+// bound it, not bandwidth.
+
+constexpr int kSweepMaxPolicies = 64;
+constexpr int kSweepK = 12;  // samples a lane a chunk (kernels._SWEEP_K)
+constexpr int kSweepScatterThreads = 256;
+
+struct SweepGrid {
+    int durations, thresholds, policies;
+    int n_max;                              // the longest window's samples
+    int bound[kSweepMaxPolicies];           // the windows' samples, ascending
+    int slot[kSweepMaxPolicies];            // the window (d) of each bound
+    float lookback[kSweepMaxPolicies];      // by window, flushed
+    float cutoff[kSweepMaxPolicies];        // by threshold, flushed
+};
+
+// One window's peaks: the warp's reduction of each lane's, into its slot.
+__device__ __forceinline__ void sweep_record(RowPeaks q, float* tc_slot, float* hbm_slot,
+                                             uint8_t* has_slot, int lane) {
+    q.tc.warp_reduce();
+    q.hbm.warp_reduce();
+    const bool has = __any_sync(kFullMask, q.has_data);
+    if (lane == 0) *tc_slot = q.tc.value(), *hbm_slot = q.hbm.value(), *has_slot = has;
+}
+
+__global__ void __launch_bounds__(kThreads)
+sweep_pass_kernel(const float* __restrict__ tc, const float* __restrict__ hbm,
+                  const uint8_t* __restrict__ valid, const float* __restrict__ age,
+                  unsigned long long* __restrict__ out, int64_t num_chips, int num_samples,
+                  const __grid_constant__ SweepGrid g) {
+    __shared__ float s_tc[kWarpsPerBlock][kSweepMaxPolicies];
+    __shared__ float s_hbm[kWarpsPerBlock][kSweepMaxPolicies];
+    __shared__ uint8_t s_has[kWarpsPerBlock][kSweepMaxPolicies];
+    __shared__ uint8_t s_window[kSweepMaxPolicies];  // by policy
+    __shared__ float s_cutoff[kSweepMaxPolicies], s_lookback[kSweepMaxPolicies];
+    if (int(threadIdx.x) < g.policies) {
+        const int p = threadIdx.x, d = p / g.thresholds;
+        s_window[p] = uint8_t(d);
+        s_cutoff[p] = g.cutoff[p - d * g.thresholds];
+        s_lookback[p] = g.lookback[d];
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t row = int64_t(blockIdx.x) * kWarpsPerBlock + warp;
+    if (row >= num_chips) return;  // whole warp leaves together, after the barrier
+    // the sample at distance k from the row's newest is [-k]
+    const int64_t newest = row * num_samples + num_samples - 1;
+    const float* tc_row = tc + newest;
+    const float* hbm_row = hbm + newest;
+    const uint8_t* valid_row = valid + newest;
+    const float row_age = flush_subnormal(__ldg(age + row));  // one address for the warp
+
+    RowPeaks p;  // this lane's samples so far, newest first
+    int next = 0;                  // the next window end to record, in g.bound
+    int at = g.bound[0] >> 5;      // the step (32 samples) it falls in
+    float x_tc[kSweepK], x_hbm[kSweepK];
+    uint8_t x_v[kSweepK];
+    for (int k0 = 0; k0 < g.n_max; k0 += 32 * kSweepK) {
+#pragma unroll
+        for (int j = 0; j < kSweepK; ++j) {
+            const int k = k0 + 32 * j + lane;
+            const bool in = k < g.n_max;
+            x_v[j] = in ? __ldg(valid_row - k) : 0;
+            x_tc[j] = in ? __ldg(tc_row - k) : 0.0f;
+            x_hbm[j] = in ? __ldg(hbm_row - k) : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < kSweepK; ++j) {
+            const int step = (k0 >> 5) + j;
+            while (step == at) {  // warp-uniform: every window that ends in this step
+                RowPeaks q = p;
+                if (lane < (g.bound[next] & 31)) q.add(x_tc[j], x_hbm[j], x_v[j] != 0);
+                const int d = g.slot[next];
+                sweep_record(q, &s_tc[warp][d], &s_hbm[warp][d], &s_has[warp][d], lane);
+                at = ++next < g.durations ? g.bound[next] >> 5 : 0x7fffffff;
+            }
+            p.add(x_tc[j], x_hbm[j], x_v[j] != 0);  // past n_max: invalid, reads as -1
+        }
+    }
+    for (; next < g.durations; ++next) {  // windows that end on the walk's last step
+        const int d = g.slot[next];
+        sweep_record(p, &s_tc[warp][d], &s_hbm[warp][d], &s_has[warp][d], lane);
+    }
+    __syncwarp();
+    unsigned half[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int pol = lane + 32 * h;
+        bool bit = false;
+        if (pol < g.policies) {
+            const int d = s_window[pol];
+            const bool idle = s_tc[warp][d] <= 0.0f && s_has[warp][d];
+            const bool hbm_active = s_hbm[warp][d] >= s_cutoff[pol];
+            bit = idle && !hbm_active && row_age >= s_lookback[pol];
+        }
+        half[h] = __ballot_sync(kFullMask, bit);
+    }
+    if (lane == 0) out[row] = (static_cast<unsigned long long>(half[1]) << 32) | half[0];
+}
+
+// Add the ballot counts of each of m's bits (policies) over the warp into
+// the block's counts: lane l adds those of bits l and l + 32.
+__device__ __forceinline__ void sweep_count_bits(unsigned long long m, int policies,
+                                                 unsigned long long* s_count, int lane) {
+    unsigned long long n[2] = {0, 0};
+#pragma unroll
+    for (int b = 0; b < kSweepMaxPolicies; ++b) {
+        if (b >= policies) break;  // block-uniform
+        const unsigned c = __popc(__ballot_sync(kFullMask, (m >> b) & 1));
+        if (lane == (b & 31)) n[b >> 5] += c;
+    }
+    if (n[0]) atomicAdd(s_count + lane, n[0]);
+    if (n[1]) atomicAdd(s_count + lane + 32, n[1]);
+}
+
+template <typename I>
+__global__ void __launch_bounds__(kSweepScatterThreads)
+sweep_marks_kernel(const unsigned long long* __restrict__ masks, const I* __restrict__ ids,
+                   unsigned long long* __restrict__ lacking, uint8_t* __restrict__ has,
+                   int64_t num_chips, int64_t num_slices, unsigned long long policy_bits) {
+    const int64_t c = int64_t(blockIdx.x) * kSweepScatterThreads + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    long long s = -1;  // this chip's slice, -1 for none
+    unsigned long long acc = ~0ull;
+    if (c < num_chips) {
+        const int64_t id = int64_t(ids[c]);
+        if (id >= 0 && id < num_slices) s = id, acc = masks[c];
+    }
+    // AND of the lanes from this one on that hold its slice: a run's first
+    // lane ends with its whole run (lanes of another run of the same slice
+    // may join in, which changes nothing)
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const unsigned long long other = __shfl_down_sync(kFullMask, acc, off);
+        const long long other_s = __shfl_down_sync(kFullMask, s, off);
+        if (lane + off < 32 && other_s == s) acc &= other;
+    }
+    const long long before = __shfl_up_sync(kFullMask, s, 1);
+    if (s >= 0 && (lane == 0 || before != s)) {
+        has[s] = 1;
+        const unsigned long long lack = ~acc & policy_bits;
+        if (lack) atomicOr(lacking + s, lack);
+    }
+}
+
+__global__ void __launch_bounds__(kSweepScatterThreads)
+sweep_slices_kernel(const unsigned long long* __restrict__ lacking,
+                    const uint8_t* __restrict__ has, unsigned long long* __restrict__ slice_masks,
+                    unsigned long long* __restrict__ counts, int64_t num_slices, int policies,
+                    unsigned long long policy_bits) {
+    __shared__ unsigned long long s_count[kSweepMaxPolicies];
+    if (threadIdx.x < kSweepMaxPolicies) s_count[threadIdx.x] = 0;
+    __syncthreads();
+    const int64_t s = int64_t(blockIdx.x) * kSweepScatterThreads + threadIdx.x;
+    unsigned long long m = 0;
+    if (s < num_slices) {
+        m = has[s] ? ~lacking[s] & policy_bits : 0;
+        slice_masks[s] = m;
+    }
+    sweep_count_bits(m, policies, s_count, threadIdx.x & 31);
+    __syncthreads();
+    if (int(threadIdx.x) < policies && s_count[threadIdx.x])
+        atomicAdd(counts + 2 * threadIdx.x, s_count[threadIdx.x]);
+}
+
+template <typename I>
+__global__ void __launch_bounds__(kSweepScatterThreads)
+sweep_chips_kernel(const I* __restrict__ ids, const unsigned long long* __restrict__ slice_masks,
+                   unsigned long long* __restrict__ counts, int64_t num_chips,
+                   int64_t num_slices, int policies) {
+    __shared__ unsigned long long s_count[kSweepMaxPolicies];
+    if (threadIdx.x < kSweepMaxPolicies) s_count[threadIdx.x] = 0;
+    __syncthreads();
+    const int64_t c = int64_t(blockIdx.x) * kSweepScatterThreads + threadIdx.x;
+    unsigned long long m = 0;
+    if (c < num_chips) {
+        const int64_t id = int64_t(ids[c]);
+        if (id >= 0 && id < num_slices) m = slice_masks[id];
+    }
+    sweep_count_bits(m, policies, s_count, threadIdx.x & 31);
+    __syncthreads();
+    if (int(threadIdx.x) < policies && s_count[threadIdx.x])
+        atomicAdd(counts + 2 * threadIdx.x + 1, s_count[threadIdx.x]);
+}
+
+int64_t sweep_blocks(int64_t n) { return (n + kSweepScatterThreads - 1) / kSweepScatterThreads; }
+
+template <typename I>
+void launch_sweep_scatter(const unsigned long long* masks, const void* ids,
+                          unsigned long long* slice_masks, unsigned long long* counts,
+                          unsigned long long* lacking, uint8_t* has, int64_t num_chips,
+                          int64_t num_slices, int policies, cudaStream_t stream) {
+    const auto id = static_cast<const I*>(ids);
+    const unsigned long long bits = policies == 64 ? ~0ull : (1ull << policies) - 1;
+    sweep_marks_kernel<I><<<unsigned(sweep_blocks(num_chips)), kSweepScatterThreads, 0, stream>>>(
+        masks, id, lacking, has, num_chips, num_slices, bits);
+    sweep_slices_kernel<<<unsigned(sweep_blocks(num_slices)), kSweepScatterThreads, 0, stream>>>(
+        lacking, has, slice_masks, counts, num_slices, policies, bits);
+    sweep_chips_kernel<I><<<unsigned(sweep_blocks(num_chips)), kSweepScatterThreads, 0, stream>>>(
+        id, slice_masks, counts, num_chips, num_slices, policies);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1622,6 +1869,75 @@ int tp_window_gather(const void* tc_in, const void* hbm_in, const void* index, v
         launch_window_gather<uint32_t>(tc_in, hbm_in, idx, tc_out, hbm_out, rows, row_bytes / 4, s);
     else
         launch_window_gather<uint8_t>(tc_in, hbm_in, idx, tc_out, hbm_out, rows, row_bytes, s);
+    return int(cudaGetLastError());
+}
+
+// The policy sweep's pass: masks [C] (a 64-bit word a chip) of the grid of
+// windows samples [D] (int32 on the host: the newest samples of each, 1 to
+// T), with lookbacks [D] and cutoffs [H] (f32 on the host, +inf where a
+// threshold is disabled), D H from 1 to 64; samples (a lane a chunk) and
+// grid are kernels.PlanSweep in order.
+int tp_sweep_pass(const void* tc, const void* hbm, const void* valid, const void* age, void* out,
+                  int64_t num_chips, int64_t num_samples, const void* samples, int64_t durations,
+                  const void* lookbacks, const void* cutoffs, int64_t thresholds,
+                  int64_t samples_per_lane, int64_t grid, void* stream) {
+    if (num_chips < 1 || num_samples < 1 || num_samples > (int64_t(1) << 30) || durations < 1 ||
+        thresholds < 1 || durations * thresholds > kSweepMaxPolicies ||
+        samples_per_lane != kSweepK || grid > 0x7fffffff ||
+        (grid - 1) * kWarpsPerBlock >= num_chips || num_chips > grid * kWarpsPerBlock)
+        return int(cudaErrorInvalidValue);
+    SweepGrid g{};
+    g.durations = int(durations);
+    g.thresholds = int(thresholds);
+    g.policies = int(durations * thresholds);
+    const auto n = static_cast<const int32_t*>(samples);
+    const auto look = static_cast<const float*>(lookbacks);
+    const auto cut = static_cast<const float*>(cutoffs);
+    for (int d = 0; d < g.durations; ++d) {
+        if (n[d] < 1 || n[d] > num_samples) return int(cudaErrorInvalidValue);
+        g.n_max = n[d] > g.n_max ? n[d] : g.n_max;
+        g.lookback[d] = fabsf(look[d]) < FLT_MIN ? 0.0f : look[d];
+        int i = d;  // insertion sort of the window ends, ascending
+        for (; i > 0 && g.bound[i - 1] > n[d]; --i) g.bound[i] = g.bound[i - 1], g.slot[i] = g.slot[i - 1];
+        g.bound[i] = n[d];
+        g.slot[i] = d;
+    }
+    for (int h = 0; h < g.thresholds; ++h) g.cutoff[h] = fabsf(cut[h]) < FLT_MIN ? 0.0f : cut[h];
+    sweep_pass_kernel<<<unsigned(grid), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(tc), static_cast<const float*>(hbm),
+        static_cast<const uint8_t*>(valid), static_cast<const float*>(age),
+        static_cast<unsigned long long*>(out), num_chips, int(num_samples), g);
+    return int(cudaGetLastError());
+}
+
+// The sweep's slice reduction; id_bytes is 4 (int32 ids) or 8 (int64). buf
+// holds 8 S + 16 P + 9 S bytes on the card: the slice masks [S], the counts
+// [P, 2] (slices and chips a policy), then the scratch (a word of lacking
+// bits and a byte "has a chip" a slice), counts and scratch zeroed here
+// first. Takes C >= 1, S >= 1 and 1 <= P <= 64 (the wrapper launches
+// nothing otherwise).
+int tp_sweep_scatter(const void* masks, const void* ids, int id_bytes, void* buf,
+                     int64_t num_chips, int64_t num_slices, int64_t policies, void* stream) {
+    if (num_chips < 1 || num_slices < 1 || policies < 1 || policies > kSweepMaxPolicies ||
+        (id_bytes != 4 && id_bytes != 8) || sweep_blocks(num_chips) > 0x7fffffff ||
+        sweep_blocks(num_slices) > 0x7fffffff)
+        return int(cudaErrorInvalidValue);
+    const auto words = static_cast<unsigned long long*>(buf);
+    unsigned long long* slice_masks = words;
+    unsigned long long* counts = words + num_slices;
+    unsigned long long* lacking = counts + 2 * policies;
+    const auto has = reinterpret_cast<uint8_t*>(lacking + num_slices);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const cudaError_t zeroed =
+        cudaMemsetAsync(counts, 0, size_t(16 * policies + 9 * num_slices), s);
+    if (zeroed != cudaSuccess) return int(zeroed);
+    const auto m = static_cast<const unsigned long long*>(masks);
+    if (id_bytes == 4)
+        launch_sweep_scatter<int32_t>(m, ids, slice_masks, counts, lacking, has, num_chips,
+                                      num_slices, int(policies), s);
+    else
+        launch_sweep_scatter<int64_t>(m, ids, slice_masks, counts, lacking, has, num_chips,
+                                      num_slices, int(policies), s);
     return int(cudaGetLastError());
 }
 

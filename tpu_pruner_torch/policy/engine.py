@@ -27,7 +27,8 @@ as the reference's clamping gather reads them. The kernel wrappers stay
 strict.
 
 Each entry is one span of ``obs`` (``engine.upload``, ``.quantize``,
-``.update``, ``.params``, ``.bounds``, ``.evaluate``, ``.rekey``); inside
+``.update``, ``.params``, ``.bounds``, ``.evaluate``, ``.rekey``,
+``.sweep``); inside
 ``evaluate_fleet`` and ``_q`` the scatter reduction is one more
 (``engine.reduce``). Each copy between the host and a device goes through
 ``obs.to_device`` or ``obs.to_host``, which count its bytes.
@@ -42,9 +43,9 @@ import numpy as np
 import torch
 
 from .. import hostlib, obs
-from .kernels import (_FLT_MIN, JOIN_COUNTS, CardRows, chip_pass, chip_pass_q, flush_subnormal,
-                      gather_runs, normalize_slice_ids, slice_gate, slice_scatter, window_gather,
-                      window_gather_plain, window_join)
+from .kernels import (_FLT_MIN, JOIN_COUNTS, SWEEP_MAX_POLICIES, CardRows, chip_pass, chip_pass_q,
+                      flush_subnormal, gather_runs, normalize_slice_ids, slice_gate, slice_scatter,
+                      sweep_pass, sweep_scatter, window_gather, window_gather_plain, window_join)
 # the sharded paths' per-rank counts
 from .kernels import slice_counts, slice_counts_contiguous  # noqa: F401
 
@@ -99,10 +100,15 @@ def normalize_inputs(tc_util, hbm_util, valid, pod_age_s, params_arr):
     the reference. A mask that is not bool reads nonzero as valid. Inputs
     that already conform are returned as they are, with no device work.
     """
+    return (*normalize_samples(tc_util, hbm_util, valid, pod_age_s), _f32(params_arr))
+
+
+def normalize_samples(tc_util, hbm_util, valid, pod_age_s):
+    """``normalize_inputs`` without the params: (tc, hbm, valid, age), the
+    inputs that every f32 evaluator shares."""
     if valid.dtype != torch.bool:
         valid = valid != 0
-    return (_f32(tc_util), _f32(hbm_util), valid.contiguous(), _f32(pod_age_s),
-            _f32(params_arr))
+    return _f32(tc_util), _f32(hbm_util), valid.contiguous(), _f32(pod_age_s)
 
 
 def _sign_q(x: torch.Tensor) -> torch.Tensor:
@@ -187,6 +193,107 @@ def evaluate_fleet(tc_util, hbm_util, valid, pod_age_s, slice_id, params_arr,
                                             params_arr))
     with obs.span("engine.reduce"):
         return slice_verdicts(candidate, slice_id, num_slices), candidate
+
+
+# --- a grid of policies in one pass: the sweep --------------------------------
+#
+# An operator tuning the daemon asks what each of several windows (-t) and
+# HBM thresholds would pause, over one dump of raw samples. The grid is the
+# product of D windows and H thresholds; policy p = d * H + h is bit p of an
+# int64 mask (bit 63 the sign bit), a chip's and a slice's.
+
+
+@dataclass(frozen=True, eq=False)
+class SweepGrid:
+    """A grid of policies over windows of ``num_samples`` samples taken
+    every ``step_s`` seconds (``sweep_grid``). Held on the host: the kernels
+    take it by value, so a call copies nothing to the card for it."""
+
+    durations_s: tuple[float, ...]      # D windows, in the caller's order
+    hbm_thresholds: tuple[float, ...]   # H thresholds; <= 0 disables
+    grace_s: float
+    step_s: float
+    num_samples: int
+    samples: np.ndarray     # int32 [D]: the newest samples of each window
+    lookback_s: np.ndarray  # f32 [D]: duration + grace, each window's age gate
+    cutoffs: np.ndarray     # f32 [H]: the threshold, or +inf where disabled
+
+    @property
+    def num_policies(self) -> int:
+        return len(self.durations_s) * len(self.hbm_thresholds)
+
+    def policy(self, p: int) -> tuple[float, float]:
+        """(duration_s, hbm_threshold) of policy ``p``."""
+        d, h = divmod(p, len(self.hbm_thresholds))
+        return self.durations_s[d], self.hbm_thresholds[h]
+
+
+def sweep_grid(durations_s, hbm_thresholds, grace_s: float, step_s: float,
+               num_samples: int) -> SweepGrid:
+    """The grid of every (duration, threshold) pair over a window of
+    ``num_samples`` samples ``step_s`` apart: policy d * H + h judges the
+    newest duration_d / step_s samples, with the age gate duration_d +
+    grace_s and the cutoff of hbm_thresholds[h] (PolicyParams.hbm_cutoff).
+
+    Raises ValueError for a grid of no policy or of more than 64, a
+    duration that is not a whole number of steps, and one of no step or of
+    more steps than ``num_samples``.
+    """
+    durations = tuple(float(d) for d in durations_s)
+    thresholds = tuple(float(t) for t in hbm_thresholds)
+    P = len(durations) * len(thresholds)
+    if not 1 <= P <= SWEEP_MAX_POLICIES:
+        raise ValueError(f"a sweep takes 1 to {SWEEP_MAX_POLICIES} policies, got "
+                         f"{len(durations)} durations x {len(thresholds)} thresholds = {P}")
+    if not step_s > 0 or num_samples < 1:
+        raise ValueError(f"a sweep needs step_s > 0 and samples, got step_s={step_s}, "
+                         f"num_samples={num_samples}")
+    samples = []
+    for duration in durations:
+        n = round(duration / step_s)
+        if n * step_s != duration:
+            raise ValueError(f"duration {duration:g} s is not a whole number of "
+                             f"{step_s:g}-s steps")
+        if not 1 <= n <= num_samples:
+            raise ValueError(f"duration {duration:g} s is {n} steps; the window holds "
+                             f"1 to {num_samples}")
+        samples.append(n)
+    lookback = np.array([d + grace_s for d in durations], dtype=np.float32)
+    cutoffs = np.array([PolicyParams(hbm_threshold=t).hbm_cutoff() for t in thresholds],
+                       dtype=np.float32)
+    return SweepGrid(durations, thresholds, float(grace_s), float(step_s), int(num_samples),
+                     np.array(samples, dtype=np.int32), lookback, cutoffs)
+
+
+@obs.spanned("engine.sweep")
+def evaluate_fleet_sweep(tc_util, hbm_util, valid, pod_age_s, slice_id, grid: SweepGrid,
+                         num_slices: int):
+    """Every policy of ``grid`` over one fleet, chips in any order, in one
+    pass of the window: (slice masks int64[S], chip masks int64[C],
+    counts int64[P, 2]).
+
+    Bit p of a chip's mask is evaluate_fleet's candidate under policy p on
+    the newest samples[d] samples (d, h = divmod(p, H)), with lookback_s =
+    duration_d + grace_s and threshold h. Bit p of a slice's mask is set iff
+    the slice has chips and each has bit p; ``counts[p]`` holds the slices
+    with bit p and the chips in them. Bits from P on are 0. The inputs are
+    evaluate_fleet's (normalize_samples, normalize_slice_ids), with
+    ``grid.num_samples`` samples a chip. On the card one launch of
+    ``kernels.sweep_pass`` and one call of ``kernels.sweep_scatter``,
+    whatever P is; on the CPU their plain versions. The ``obs`` counters
+    ``sweep_policies`` and ``sweep_window_passes`` count the policies judged
+    and the passes over the samples (one a call).
+    """
+    if tc_util.dim() != 2 or tc_util.shape[1] != grid.num_samples:
+        raise ValueError(f"the grid is for windows of {grid.num_samples} samples, got "
+                         f"samples of shape {tuple(tc_util.shape)}")
+    tc, hbm, valid, age = normalize_samples(tc_util, hbm_util, valid, pod_age_s)
+    masks = sweep_pass(tc, hbm, valid, age, grid.samples, grid.lookback_s, grid.cutoffs)
+    slice_masks, counts = sweep_scatter(masks, normalize_slice_ids(slice_id).contiguous(),
+                                        num_slices, grid.num_policies)
+    obs.count("sweep_policies", grid.num_policies)
+    obs.count("sweep_window_passes")
+    return slice_masks, masks, counts
 
 
 # --- int8 quantized sample storage ------------------------------------------
@@ -734,17 +841,18 @@ def quantize_fleet_inputs(inputs):
 def fleet_from_numpy(inputs, device="cuda"):
     """The JAX package's evaluate_fleet input tuple, as numpy, -> tensors.
 
-    (tc, hbm, valid, age, slice_id, params_arr) keep their dtypes: f32
-    samples, bool validity, f32 age, int32 slice ids, f32[2] params. The
-    engine has no learned weights: these tensors and the params are its
-    whole state.
+    (tc, hbm, valid, age, slice_id[, params_arr]) keep their dtypes: f32
+    samples, bool validity, f32 age, int32 slice ids, f32[2] params; a
+    fleet without params (a sweep's) gives five tensors. The engine has no
+    learned weights: these tensors and the params are its whole state.
     """
     device = resolve_device(device)
-    tc, hbm, valid, age, slice_id, params_arr = inputs
+    if len(inputs) not in (5, 6):
+        raise ValueError(f"a fleet is 5 arrays, or 6 with its params; got {len(inputs)}")
     dtypes = (np.float32, np.float32, bool, np.float32, np.int32, np.float32)
     return tuple(
         obs.to_device(torch.from_numpy(np.ascontiguousarray(x, dtype=dt)), device)
-        for x, dt in zip((tc, hbm, valid, age, slice_id, params_arr), dtypes))
+        for x, dt in zip(inputs, dtypes))
 
 
 def make_example_fleet(

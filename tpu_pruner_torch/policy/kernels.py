@@ -31,7 +31,14 @@ each row to one verdict: a bandwidth-bound pass with no tensor-core work.
   launches ``tp_window_gather``; neither has a Pallas counterpart: they
   carry the window's rows to a changed fleet's order
   (``engine.rekey_window``), where the reference starts the window over.
-  The join's plain version is ``engine.rekey_plain``, on the host.
+  The join's plain version is ``engine.rekey_plain``, on the host;
+- ``sweep_pass`` (f32 samples + bool mask, a grid of up to 64 policies)
+  launches ``tp_sweep_pass``, which walks each row once from its newest
+  sample and writes one 64-bit mask a chip, a bit a policy, and
+  ``sweep_scatter`` (those masks + slice ids in any order) launches
+  ``tp_sweep_scatter``, which reduces them to a 64-bit mask a slice and
+  the per-policy counts; neither has a Pallas counterpart: the reference
+  judges one policy a call (``engine.evaluate_fleet_sweep``).
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. The plain versions apply the
@@ -59,7 +66,7 @@ from . import _build
 _FLT_MIN = 1.1754944e-38  # smallest normal f32; XLA flushes below it
 
 LAUNCHES = {"chip_pass": 0, "chip_pass_q": 0, "slice_gate": 0, "slice_scatter": 0,
-            "window_gather": 0, "window_join": 0}
+            "window_gather": 0, "window_join": 0, "sweep_pass": 0, "sweep_scatter": 0}
 DESIGN_LAUNCHES = {"rows": 0, "tiles": 0}  # chip_pass_q's launches, by design
 F32_DESIGN_LAUNCHES = {"groups": 0, "long": 0}  # chip_pass's, by design
 
@@ -688,3 +695,180 @@ def window_join(rows: CardRows, keys, prev_cycle: int, cycle: int, num_chunks: i
     LAUNCHES["window_join"] += 1
     return Joined(buf[:at_index].view(torch.int64),
                   buf[at_index:at_index + 4 * (C + R)].view(torch.int32), host)
+
+
+# --- the policy sweep: a grid of policies in one pass ---------------------------
+#
+# A grid pairs D windows (the newest ``samples[d]`` samples of each row, with
+# the age gate ``lookbacks[d]``) with H HBM cutoffs; policy p = d * H + h is
+# bit p of a chip's and of a slice's int64 mask (bit 63 is the sign bit).
+# The grid goes to the kernel by value, in its parameters: no copy to the card.
+SWEEP_MAX_POLICIES = 64  # kSweepMaxPolicies in csrc/chip_pass.cu
+_SWEEP_K = 12  # kSweepK: samples a lane a chunk of the walk
+
+
+class PlanSweep(NamedTuple):
+    samples_per_lane: int  # _SWEEP_K: a chunk is 32 * this samples of a row
+    grid: int              # blocks of _F32_WARPS_PER_BLOCK warps, one row each
+
+
+def _plan_sweep(num_chips: int) -> PlanSweep:
+    return PlanSweep(_SWEEP_K, _cdiv(num_chips, _F32_WARPS_PER_BLOCK))
+
+
+def _sweep_grid_arrays(samples, lookbacks, cutoffs, num_samples: int):
+    """The grid as the kernel takes it: (int32 [D], f32 [D], f32 [H]), C
+    contiguous on the host; raises where it is not a grid of 1 to 64
+    policies of windows within ``num_samples``."""
+    samples = np.ascontiguousarray(samples, dtype=np.int32)
+    lookbacks = np.ascontiguousarray(lookbacks, dtype=np.float32)
+    cutoffs = np.ascontiguousarray(cutoffs, dtype=np.float32)
+    D, H = len(samples), len(cutoffs)
+    if samples.ndim != 1 or lookbacks.shape != (D,) or cutoffs.ndim != 1:
+        raise ValueError("a sweep takes [D] windows, [D] lookbacks and [H] cutoffs")
+    if not 1 <= D * H <= SWEEP_MAX_POLICIES:
+        raise ValueError(f"a sweep takes 1 to {SWEEP_MAX_POLICIES} policies, "
+                         f"got {D} windows x {H} cutoffs")
+    if samples.min() < 1 or samples.max() > num_samples:
+        raise ValueError(f"each window takes 1 to {num_samples} samples, "
+                         f"got {samples.tolist()}")
+    return samples, lookbacks, cutoffs
+
+
+def sweep_pass_plain(tc, hbm, valid, age, samples, lookbacks, cutoffs) -> torch.Tensor:
+    """Plain PyTorch version of the sweep pass (int64[C]): the chip pass's
+    rules over each window, in one pass over the samples. The windows'
+    distinct lengths cut each row into bands, newest first; a band's peaks
+    are taken once, and a window's are the running maxima of its bands."""
+    C, T = tc.shape
+    H = len(cutoffs)
+    neg = torch.tensor(-1.0, dtype=torch.float32, device=tc.device)
+    peaks, run, lo = {}, None, T
+    for n in sorted(set(int(n) for n in samples)):
+        cols = slice(T - n, lo)
+        v = valid[:, cols]
+        band = (torch.where(v, flush_subnormal(tc[:, cols]), neg).amax(dim=1),
+                torch.where(v, flush_subnormal(hbm[:, cols]), neg).amax(dim=1),
+                v.any(dim=1))
+        run = band if run is None else (torch.maximum(run[0], band[0]),
+                                        torch.maximum(run[1], band[1]), run[2] | band[2])
+        peaks[n], lo = run, T - n
+    age = flush_subnormal(age)
+    look = flush_subnormal(torch.from_numpy(np.asarray(lookbacks, np.float32)).to(tc.device))
+    cut = flush_subnormal(torch.from_numpy(np.asarray(cutoffs, np.float32)).to(tc.device))
+    out = torch.zeros(C, dtype=torch.int64, device=tc.device)
+    for d, n in enumerate(samples):
+        peak_tc, peak_hbm, has_data = peaks[int(n)]
+        idle = (peak_tc <= 0.0) & has_data & (age >= look[d])
+        for h in range(H):
+            bit = idle & ~(peak_hbm >= cut[h])
+            out |= bit.to(torch.int64) << (d * H + h)
+    return out
+
+
+def sweep_pass(tc, hbm, valid, age, samples, lookbacks, cutoffs) -> torch.Tensor:
+    """Each chip's mask (int64[C]) under a grid of policies: bit d * H + h is
+    set iff, over the newest ``samples[d]`` samples, the chip has a valid
+    sample, a valid tensorcore peak <= 0 and a valid HBM peak under
+    ``cutoffs[h]``, and its age is at least ``lookbacks[d]``; as chip_pass
+    judges one window (subnormals read as 0, NaN propagates, an +inf cutoff
+    rescues only an +inf sample).
+
+    tc, hbm: f32[C, T]; valid: bool[C, T]; age: f32[C]; samples (int, 1 to
+    T), lookbacks (f32) [D] and cutoffs (f32, +inf where disabled) [H] on
+    the host, D * H from 1 to 64.
+    """
+    C, T = _rows(tc)
+    device = _check({"tc": (tc, torch.float32, (C, T)),
+                     "hbm": (hbm, torch.float32, (C, T)),
+                     "valid": (valid, torch.bool, (C, T)),
+                     "age": (age, torch.float32, (C,))})
+    samples, lookbacks, cutoffs = _sweep_grid_arrays(samples, lookbacks, cutoffs, T)
+    if device.type == "cpu":
+        return sweep_pass_plain(tc, hbm, valid, age, samples, lookbacks, cutoffs)
+    out = torch.empty(C, dtype=torch.int64, device=device)
+    if not C:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tp_sweep_pass(tc.data_ptr(), hbm.data_ptr(),
+                                   valid.view(torch.uint8).data_ptr(), age.data_ptr(),
+                                   out.data_ptr(), C, T, samples.ctypes.data, len(samples),
+                                   lookbacks.ctypes.data, cutoffs.ctypes.data, len(cutoffs),
+                                   *_plan_sweep(C), stream)
+    _build.check(status, "tp_sweep_pass")
+    LAUNCHES["sweep_pass"] += 1
+    return out
+
+
+def sweep_scatter_plain(masks, slice_id, num_slices: int, num_policies: int):
+    """Plain PyTorch version of the sweep's slice reduction: the index_add_
+    counts of each policy's chips that lack its bit, as slice_counts counts
+    one policy's."""
+    S, P = num_slices, num_policies
+    keep = (slice_id >= 0) & (slice_id < S)
+    index = torch.where(keep, slice_id, S).long()
+    chips = torch.zeros(S + 1, dtype=torch.int64, device=masks.device)
+    chips.index_add_(0, index, torch.ones_like(index))
+    bits = (masks[:, None] >> torch.arange(P, device=masks.device)) & 1
+    lacking = torch.zeros((S + 1, P), dtype=torch.int64, device=masks.device)
+    lacking.index_add_(0, index, 1 - bits)
+    chips = chips[:S]
+    ok = (lacking[:S] == 0) & (chips > 0)[:, None]
+    slice_masks = torch.zeros(S, dtype=torch.int64, device=masks.device)
+    for p in range(P):
+        slice_masks |= ok[:, p].to(torch.int64) << p
+    counts = torch.stack([ok.sum(dim=0), (ok * chips[:, None]).sum(dim=0)], dim=1)
+    return slice_masks, counts
+
+
+def sweep_scatter(masks, slice_id, num_slices: int, num_policies: int):
+    """(slice masks int64[S], counts int64[P, 2]) of chip masks in any
+    order: bit p of slice s is set iff some chip has id s and every such
+    chip has bit p; ``counts[p]`` is the slices with bit p and the chips of
+    those slices. An id outside [0, S) counts nowhere.
+
+    masks: int64[C] (``sweep_pass``'s; bits from P on are read as unset);
+    slice_id: int32 or int64 [C] (engine.evaluate_fleet_sweep widens other
+    integer ids first); P from 1 to 64.
+    """
+    if masks.dtype != torch.int64:
+        raise TypeError(f"masks must be torch.int64, got {masks.dtype}")
+    if slice_id.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"slice ids must be int32 or int64, got {slice_id.dtype}")
+    for name, t in (("masks", masks), ("slice_id", slice_id)):
+        if t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if slice_id.shape != masks.shape:
+        raise ValueError(f"slice_id must have shape {tuple(masks.shape)}, "
+                         f"got {tuple(slice_id.shape)}")
+    device = masks.device
+    if slice_id.device != device:
+        raise ValueError(f"slice_id is on {slice_id.device}, expected {device}")
+    if num_slices < 0:
+        raise ValueError(f"num_slices must be >= 0, got {num_slices}")
+    if not 1 <= num_policies <= SWEEP_MAX_POLICIES:
+        raise ValueError(f"a sweep takes 1 to {SWEEP_MAX_POLICIES} policies, got {num_policies}")
+    if device.type == "cpu":
+        return sweep_scatter_plain(masks, slice_id, num_slices, num_policies)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    S, P = int(num_slices), int(num_policies)
+    if not S or not masks.shape[0]:  # nothing to launch: no slice, or none has a chip
+        return (torch.zeros(S, dtype=torch.int64, device=device),
+                torch.zeros((P, 2), dtype=torch.int64, device=device))
+    # one buffer: the slice masks, the counts, then the scratch (a word of
+    # lacking bits and a byte "has a chip" a slice), which the call zeroes
+    buf = torch.empty(8 * S + 16 * P + 9 * S, dtype=torch.uint8, device=device)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tp_sweep_scatter(masks.data_ptr(), slice_id.data_ptr(),
+                                      slice_id.element_size(), buf.data_ptr(),
+                                      masks.shape[0], S, P, stream)
+    _build.check(status, "tp_sweep_scatter")
+    LAUNCHES["sweep_scatter"] += 1
+    return buf[:8 * S].view(torch.int64), buf[8 * S:8 * S + 16 * P].view(torch.int64).view(P, 2)
